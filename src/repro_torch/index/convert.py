@@ -1,0 +1,44 @@
+"""Carry an index built elsewhere into the port.
+
+The arrays are plain numpy, keyed by the reference's dataclass field names
+(``adj``, ``entry``, ``alpha``, ``lid``, ``mu``, ``sigma`` for the graph;
+``centroids``, ``codes``, ``vectors`` for the tiers), so the port never
+imports the package that built them.  uint32 data keeps its bit pattern as
+int32.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core.types import GraphIndex
+from repro_torch.index.disk import TieredIndex
+from repro_torch.pq import PqCodebook
+
+
+def _tensor(a, dtype: np.dtype, dev) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype == np.uint32:
+        a = a.view(np.int32)
+    return torch.from_numpy(np.array(a, dtype=dtype)).to(dev)
+
+
+def graph_index_from_arrays(arrays: dict, device="cuda") -> GraphIndex:
+    dev = resolve_device(device)
+    f32 = np.float32
+    return GraphIndex(adj=_tensor(arrays["adj"], np.int32, dev),
+                      entry=_tensor(arrays["entry"], np.int32, dev).reshape(()),
+                      alpha=_tensor(arrays["alpha"], f32, dev),
+                      lid=_tensor(arrays["lid"], f32, dev),
+                      mu=_tensor(arrays["mu"], f32, dev).reshape(()),
+                      sigma=_tensor(arrays["sigma"], f32, dev).reshape(()))
+
+
+def tiered_index_from_arrays(arrays: dict, device="cuda") -> TieredIndex:
+    dev = resolve_device(device)
+    return TieredIndex(
+        graph=graph_index_from_arrays(arrays, dev),
+        codebook=PqCodebook(_tensor(arrays["centroids"], np.float32, dev)),
+        codes=_tensor(arrays["codes"], np.uint8, dev),
+        vectors=_tensor(arrays["vectors"], np.float32, dev))

@@ -1,0 +1,96 @@
+"""Plain PyTorch versions of the port's kernels.
+
+Each ``<name>_ref`` is the semantic ground truth its CUDA kernel is held to
+(on the card, by ``chip_smoke.py``) and what the wrapper in
+:mod:`repro_torch.kernels.ops` runs for tensors on the CPU.  Literal
+translations of :mod:`repro.kernels.ref`, with the batch dimension written
+out where the reference uses ``vmap``.
+"""
+from __future__ import annotations
+
+import torch
+
+INVALID = -1
+
+
+def _as_lanes(v, q: int, device) -> torch.Tensor:
+    return torch.as_tensor(v, dtype=torch.int32, device=device).expand(q)
+
+
+def lane_active(beam_ids, beam_exp, hops, budgets, hop_limits) -> torch.Tensor:
+    """(Q,) bool: whether each lane's walk can still take a hop — hop limit
+    not reached and an unexpanded, valid, in-budget beam slot left."""
+    q, width = beam_ids.shape
+    slot = torch.arange(width, device=beam_ids.device)
+    in_budget = slot[None, :] < _as_lanes(budgets, q, beam_ids.device)[:, None]
+    frontier_open = ((~beam_exp) & (beam_ids != INVALID) & in_budget).any(1)
+    return (hops < _as_lanes(hop_limits, q, beam_ids.device)) & frontier_open
+
+
+def beam_step_ref(state, ctxs, adj, table, budgets, hop_limits, *, kind):
+    """One beam-walk hop over a batch of lanes (plain PyTorch oracle).
+
+    ``state`` is (beam_ids (Q, L) int32, beam_d (Q, L) float32, beam_exp
+    (Q, L) bool, visited (Q, ceil(N/32)) int32 holding uint32 bit patterns,
+    hops (Q,) int32, evals (Q,) int32).  ``kind="exact"``: ``table`` is
+    (N, D) float32 vectors and ``ctxs`` (Q, D) queries; ``kind="pq"``:
+    ``table`` is (N, M) uint8 codes and ``ctxs`` (Q, M, K) ADC LUTs.
+    Returns the post-hop state as new tensors; lanes whose frontier is closed
+    or hop limit reached come back unchanged.
+    """
+    if kind not in ("exact", "pq"):
+        raise ValueError(f"unknown beam_step kind {kind!r}")
+    beam_ids, beam_d, beam_exp, visited, hops, evals = state
+    q, width = beam_ids.shape
+    dev = beam_ids.device
+    rows = torch.arange(q, device=dev)
+    budgets = _as_lanes(budgets, q, dev)
+    hop_limits = _as_lanes(hop_limits, q, dev)
+
+    in_budget = torch.arange(width, device=dev)[None, :] < budgets[:, None]
+    frontier_open = ((~beam_exp) & (beam_ids != INVALID) & in_budget).any(1)
+    active = (hops < hop_limits) & frontier_open
+
+    cand_d = torch.where(beam_exp | (beam_ids == INVALID) | (~in_budget),
+                         torch.inf, beam_d)
+    j = torch.argmin(cand_d, dim=1)
+    u = beam_ids[rows, j]
+    new_exp = beam_exp.clone()
+    new_exp[rows, j] = True
+
+    nbrs = adj[u.clamp_min(0).long()]                       # (Q, R)
+    valid = (nbrs != INVALID) & (u != INVALID)[:, None]
+    safe = nbrs.clamp_min(0)
+    word_idx = (safe >> 5).long()
+    bit = torch.bitwise_left_shift(torch.ones_like(safe), safe & 31)
+    seen = (torch.gather(visited, 1, word_idx) & bit) != 0
+    valid = valid & (~seen)
+
+    if kind == "pq":
+        c = table[safe.long()].long()                       # (Q, R, M)
+        d = torch.gather(ctxs, 2, c.transpose(1, 2)).sum(1)  # (Q, R)
+    else:
+        diff = table[safe.long()].float() - ctxs[:, None, :]
+        d = (diff * diff).sum(-1)
+    d = torch.where(valid, d, torch.inf)
+    # Distinct ids set distinct bits, so an add of the bits is their OR.
+    new_visited = visited.scatter_add(
+        1, word_idx, torch.where(valid, bit, torch.zeros_like(bit)))
+
+    nbr_ids = torch.where(valid, nbrs, INVALID)
+    cat_ids = torch.cat([beam_ids, nbr_ids], 1)
+    cat_d = torch.cat([beam_d, d], 1)
+    cat_exp = torch.cat([new_exp, torch.zeros_like(valid)], 1)
+    order = torch.argsort(cat_d, dim=1, stable=True)[:, :width]
+    m_ids = torch.gather(cat_ids, 1, order)
+    m_d = torch.gather(cat_d, 1, order)
+    m_exp = torch.gather(cat_exp, 1, order)
+
+    a = active[:, None]
+    return (torch.where(a, m_ids, beam_ids),
+            torch.where(a, m_d, beam_d),
+            torch.where(a, m_exp, beam_exp),
+            torch.where(a, new_visited, visited),
+            torch.where(active, hops + 1, hops),
+            torch.where(active, evals + valid.sum(1, dtype=torch.int32),
+                        evals))
