@@ -6,25 +6,43 @@
 Phases, each printed on its own lines; any failure exits non-zero:
 
 1. device and build — the card's name and power limit (nvidia-smi), then the
-   ``beam_step`` CUDA kernel compiled from ``src/repro_torch/csrc`` with nvcc;
-2. kernel vs plain version — ``beam_step`` in both kinds at serving shape
-   (Q=1024, L=128, R=64, N=1M; D=128 exact, M=16 x K=256 PQ) for 12 hops:
-   bit-identical to ``beam_step_ref`` on integer-valued tables and contexts
-   (every float32 sum exact in any order), and on float data beam_d within
-   1e-5 relative with ids and visited words equal in every lane without a
-   near-tie; the device time of one hop, kernel and plain (launches queued
-   back to back behind a sleep kernel, so host work is not timed);
-3. the main path at the ``mcgi-sift1m`` deployment (the paper's Table 2:
-   N=1M, D=128, R=64, L_build=100, alpha in [1, 1.5], l_search=128, k=10,
-   max_hops=192, lam=0.25, l_min=8, probe_hops=8, hop_factor=4, PQ m=16) on
-   synthetic SIFT1M-shaped data drawn from --seed on the card: MCGI build
-   (LID calibration + alpha-mapped prune), PQ tier, ground truth, then
-   serving through the engine — tiered adaptive pipelined (the ``pq`` kind),
-   exact adaptive (the ``exact`` kind) and one fixed-beam batch at beam 128;
-   fails if a kind was never launched, tiered-adaptive recall@10 < 0.80, or
-   any result id lies outside [-1, N); after the launch counts are read,
-   the tiered adaptive stream is served again as one ``search`` per batch
-   and with 4 budget buckets, to compare QPS (results must not move);
+   four kernel libraries (``beam_step``, ``l2_distance``, ``topk``,
+   ``lid_kernel``) compiled from ``src/repro_torch/csrc`` with nvcc, one
+   process each, all started together;
+2. kernel vs plain version, at the main path's own shapes —
+   ``beam_step`` in both kinds at serving shape (Q=1024, L=128, R=64, N=1M;
+   D=128 exact, M=16 x K=256 PQ) for 12 hops: bit-identical to
+   ``beam_step_ref`` on integer-valued tables and contexts, and on float data
+   beam_d within 1e-5 relative with ids and visited words equal in every
+   lane without a near-tie; ``l2_distance`` at the k-NN shape (4096 x 65536
+   x 128) float32 within rtol 1e-4 / atol 1e-3, bfloat16 at 1024 x 8192 x
+   128 within 2e-2 / 2e-1; ``topk`` on that float32 output at k = 17 and 10
+   (and on a row with planted ties, a row with fewer than k finite entries
+   and 8 rows cut into segments): values bitwise and ids exactly equal;
+   ``lid_estimate`` at 1M x 16 within rtol 1e-4.  Each kernel's device time
+   per launch (launches queued back to back behind a sleep kernel, so host
+   work is not timed), the plain version's time, the library call's time
+   where one PyTorch call computes the same function, and the bound;
+3. the main path at the ``mcgi-sift1m`` deployment (the paper's Table 2,
+   ``repro_torch/configs/mcgi_datasets.py``: N=1M, D=128, R=64,
+   L_build=100, alpha in [1, 1.5], l_search=128, k=10, max_hops=192,
+   lam=0.25, l_min=8, probe_hops=8, hop_factor=4; PQ m=16) on synthetic
+   SIFT1M-shaped data drawn from --seed on the card: MCGI build (the LID
+   k-NN through ``l2_distance`` + ``topk``, the estimate through
+   ``lid_estimate``, then the alpha-mapped prune), PQ tier, ground truth,
+   then serving through the engine — tiered adaptive pipelined (the ``pq``
+   kind), exact adaptive (the ``exact`` kind) and one fixed-beam batch at
+   beam 128; fails if any of the five kernels was never launched,
+   tiered-adaptive recall@10 < 0.80, or any result id lies outside [-1, N);
+   after the launch counts are read, the tiered adaptive stream is served
+   again as one ``search`` per batch and with 4 budget buckets, to compare
+   QPS (results must not move);
+3b. the calibration path — ``SearchEngine.recalibrate(joint=True)`` of the
+   exact adaptive engine to the config's recall target 0.95 and of the
+   tiered engine to 0.80 (PQ m=16 caps tiered recall near 0.835), each on
+   256 held-out queries, then the 10k stream served with each fitted law;
+   fails if the exact fit is not achieved, its served recall@10 falls below
+   0.92, or a ``beam_step`` kind was never launched;
 4. the kernels line, then one JSON object per the port's contract, and the
    device line last.
 
@@ -42,21 +60,33 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# mcgi-sift1m (paper Table 2/3; the JAX package's configs/mcgi_datasets.py).
-SIFT1M = dict(d=128, degree=64, l_build=100, alpha_min=1.0, alpha_max=1.5,
-              l_search=128, k=10, max_hops=192, lam=0.25, l_min=8,
-              probe_hops=8, hop_factor=4, m_pq=16)
 # NVIDIA H100 SXM data sheet, at the full 700 W power limit.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 RECALL_FLOOR = 0.80
 FLOAT_RTOL = 1e-5
 KERNEL_N, KERNEL_Q = 1_000_000, 1024     # phase 2: serving shape
+KNN_Q, KNN_N = 4096, 65536               # phase 2: one k-NN chunk
 N_QUERIES, SERVE_BATCH = 10_000, 1000    # SIFT1M's query set, 10 batches
 BUILD_BATCH = 2048                       # walk lanes per build step
-SLEEP_CYCLES = 100_000_000               # ~50 ms hold of the card (time_hop)
-SOURCE = "src/repro_torch/csrc/beam_step.cu"
-REPLACES = "src/repro/kernels/beam_step.py:180"
+M_PQ = 16                                # the config's m_pq is None (no PQ)
+TIERED_TARGET = 0.80                     # PQ m=16 caps tiered recall ~0.835
+SERVED_RECALL_SLACK = 0.03
+CALIB_SAMPLE = 256
+SLEEP_CYCLES = 100_000_000               # ~50 ms hold of the card (timing)
+CSRC = "src/repro_torch/csrc/"
+REPLACES = {"beam_step": "src/repro/kernels/beam_step.py:180",
+            "l2_distance": "src/repro/kernels/l2_distance.py:38",
+            "topk": "src/repro/kernels/topk.py:45",
+            "lid_estimate": "src/repro/kernels/lid_kernel.py:36"}
+SOURCES = {"beam_step": "beam_step.cu", "l2_distance": "l2_distance.cu",
+           "topk": "topk.cu", "lid_estimate": "lid_kernel.cu"}
+
+
+def sift1m():
+    from repro_torch.configs.mcgi_datasets import DATASETS
+
+    return DATASETS["mcgi-sift1m"]
 
 
 def log(msg: str) -> None:
@@ -93,7 +123,7 @@ def walk_problem(kind, dev, n, q, width, r, integer: bool, seed: int,
     g = torch.Generator(device=dev).manual_seed(seed)
     adj = build.random_graph(n, r, g)
     if kind == "exact":
-        d = SIFT1M["d"]
+        d = sift1m().d
         if integer:
             table = torch.randint(-8, 9, (n, d), generator=g, device=dev).float()
             ctxs = torch.randint(-8, 9, (q, d), generator=g, device=dev).float()
@@ -102,7 +132,7 @@ def walk_problem(kind, dev, n, q, width, r, integer: bool, seed: int,
             ctxs = torch.randn((q, d), generator=g, device=dev)
         ev = search._exact_eval(table)
     else:
-        m, k = SIFT1M["m_pq"], 256
+        m, k = M_PQ, 256
         table = torch.randint(0, k, (n, m), generator=g, device=dev,
                               dtype=torch.uint8)
         if integer:
@@ -291,11 +321,139 @@ def check_kernel(kind, dev, n, q, width, r, hops: int, seed: int):
         f"on the device ({host_ms:.4f} ms of wrapper host time per launch), "
         f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
     del st0, st_k, st_p, st, adj_f, table_f
-    return {"name": f"beam_step.{kind}", "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES, "launches": None, "max_abs_err": max_err,
+    return {"name": f"beam_step.{kind}", "route": "cuda",
+            "source": CSRC + SOURCES["beam_step"],
+            "replaces": REPLACES["beam_step"], "launches": None,
+            "max_abs_err": max_err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None,
             "verdict": "bit-identical on integer data; float within rtol 1e-5"}
+
+
+def time_calls(fn, hold: bool, reps: int = 20,
+               rounds: int = 5) -> tuple[float, float]:
+    """(device ms, host ms) per call of ``fn()``: medians over ``rounds`` of
+    the mean of ``reps`` calls back to back, timed as :func:`time_hop`
+    does (``hold``: queued behind a sleep kernel, device work alone)."""
+    return time_hop(lambda _: fn(), (), hold, reps, rounds)
+
+
+def record(name, max_err, ms, plain_ms, library_ms, bound, verdict) -> dict:
+    base = name.split(".")[0]
+    return {"name": name, "route": "cuda", "source": CSRC + SOURCES[base],
+            "replaces": REPLACES[base], "launches": None,
+            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound[0], "bound_by": bound[1],
+            "library_ms": library_ms, "verdict": verdict}
+
+
+def bound_of(nbytes: float, ops: float) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def check_bulk_kernels(dev, seed: int) -> list[dict]:
+    """Phase 2 for ``l2_distance``, ``topk`` and ``lid_estimate`` at the
+    shapes the main path gives them: one k-NN chunk of the build (4096
+    points against 65536, D=128, k=17; the ground truth's k=10) and the
+    LID estimate of 1M points at k=16."""
+    import torch
+
+    from repro_torch.core import distance
+    from repro_torch.kernels import ops, ref
+
+    cfg = sift1m()
+    out = []
+    g = torch.Generator(device=dev).manual_seed(seed + 101)
+    q = torch.randn((KNN_Q, cfg.d), generator=g, device=dev)
+    x = torch.randn((KNN_N, cfg.d), generator=g, device=dev)
+
+    # l2_distance, float32 at the k-NN shape.
+    got = ops.bulk_l2(q, x)
+    want = ref.l2_distance_ref(q, x)
+    sync(dev)
+    if not torch.allclose(got, want, rtol=1e-4, atol=1e-3):
+        raise AssertionError("l2_distance float32 differs from the plain "
+                             "version beyond rtol 1e-4 / atol 1e-3")
+    err = float((got - want).abs().max())
+    del want
+    qb, xb = q[:1024].bfloat16(), x[:8192].bfloat16()
+    got_b, want_b = ops.bulk_l2(qb, xb), ref.l2_distance_ref(qb, xb)
+    sync(dev)
+    if not torch.allclose(got_b, want_b, rtol=2e-2, atol=2e-1):
+        raise AssertionError("l2_distance bfloat16 differs from the plain "
+                             "version beyond rtol 2e-2 / atol 2e-1")
+    err_b = float((got_b - want_b).abs().max())
+    ms, host = time_calls(lambda: ops.bulk_l2(q, x), hold=True)
+    plain_ms, _ = time_calls(lambda: ref.l2_distance_ref(q, x), hold=False)
+    lib_ms, _ = time_calls(lambda: distance.squared_l2(q, x), hold=False)
+    nq, n, d = KNN_Q, KNN_N, cfg.d
+    bound = bound_of((nq + n) * d * 4 + nq * n * 4,
+                     2 * nq * n * d + 2 * (nq + n) * d + 3 * nq * n)
+    log(f"[phase2] l2_distance {nq}x{n}x{d} float32: within rtol 1e-4 (max "
+        f"abs err {err:.3g}); bfloat16 1024x8192x{d} within 2e-2 (max abs "
+        f"err {err_b:.3g}); kernel {ms:.4f} ms on the device ({host:.4f} ms "
+        f"host), plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
+        f"{bound[0]:.4f} ms ({bound[1]})")
+    out.append(record("l2_distance", err, ms, plain_ms, lib_ms, bound,
+                      "float32 within rtol 1e-4 / atol 1e-3; bfloat16 "
+                      "within 2e-2 / 2e-1"))
+
+    # topk on that matrix, plus planted ties, a row with fewer than k
+    # finite entries, and a few rows cut into segments.
+    d = got
+    del got, got_b, want_b
+    tied = d[:8].clone()
+    tied[0] = torch.randint(0, 4, (n,), generator=g, device=dev).float()
+    tied[1] = torch.inf
+    tied[1, torch.randperm(n, generator=g, device=dev)[:5]] = 3.0
+    for k in (17, cfg.k):
+        for what, m in (("k-NN chunk", d), ("ties + short row", tied[:2]),
+                        ("8 rows in segments", tied)):
+            gv, gi = ops.topk(m, k)
+            wv, wi = ref.topk_ref(m, k)
+            sync(dev)
+            if not (torch.equal(gv, wv) and torch.equal(gi, wi)):
+                bad = int(((gv != wv) | (gi != wi)).any(1).sum())
+                raise AssertionError(f"topk k={k} ({what}): {bad} rows "
+                                     f"differ from the plain version")
+        log(f"[phase2] topk k={k}: values bitwise and ids equal to the plain "
+            f"version ({KNN_Q}x{KNN_N}; planted ties; a row with 5 finite "
+            f"entries; 8 rows in segments)")
+    k = 17
+    ms, host = time_calls(lambda: ops.topk(d, k), hold=True)
+    plain_ms, _ = time_calls(lambda: ref.topk_ref(d, k), hold=False)
+    lib_ms, _ = time_calls(lambda: torch.topk(d, k, dim=1, largest=False),
+                           hold=False)
+    bound = bound_of(nq * n * 4 + nq * k * 8, nq * n)
+    log(f"[phase2] topk {nq}x{n} k={k}: kernel {ms:.4f} ms on the device "
+        f"({host:.4f} ms host), plain {plain_ms:.4f} ms, library "
+        f"{lib_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]})")
+    out.append(record("topk", 0.0, ms, plain_ms, lib_ms, bound,
+                      "values bitwise, ids equal"))
+    del d, tied, q, x
+
+    # lid_estimate on 1M ascending k=16 rows, duplicates included.
+    b, kk = sift1m().n, 16
+    d2 = torch.sort(torch.rand((b, kk), generator=g, device=dev) + 0.01,
+                    dim=1).values
+    d2[:1000, :3] = 0.0
+    got, want = ops.lid_estimate(d2), ref.lid_ref(d2)
+    sync(dev)
+    if not torch.allclose(got, want, rtol=1e-4, atol=0.0):
+        raise AssertionError("lid_estimate differs from the plain version "
+                             "beyond rtol 1e-4")
+    err = float((got - want).abs().max())
+    ms, host = time_calls(lambda: ops.lid_estimate(d2), hold=True)
+    plain_ms, _ = time_calls(lambda: ref.lid_ref(d2), hold=False)
+    bound = bound_of(b * kk * 4 + b * 4, 4 * b * kk)
+    log(f"[phase2] lid_estimate {b}x{kk}: within rtol 1e-4 (max abs err "
+        f"{err:.3g}); kernel {ms:.4f} ms on the device ({host:.4f} ms host), "
+        f"plain {plain_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]})")
+    out.append(record("lid_estimate", err, ms, plain_ms, None, bound,
+                      "within rtol 1e-4"))
+    return out
 
 
 # ---------------------------------------------------------------- phase 3
@@ -341,7 +499,7 @@ def serve_run(name, engine, batches, gts, n, pipelined: bool):
     log(f"[serve] {name}: recall@10={m['recall']:.4f} qps={m['qps']:.1f} "
         f"batch_lat p50={m['p50_ms']:.1f}ms p99={m['p99_ms']:.1f}ms "
         f"meanL={m['mean_budget']} hops/query={m['mean_hops']:.2f} "
-        f"beam_step launches={launches}")
+        f"launches={ {k: v for k, v in launches.items() if v} }")
     return m
 
 
@@ -365,13 +523,13 @@ def compare_serving(eng_auto, eng_buckets, batches) -> None:
     ids0 = None
     for w in order:
         eng, pipelined = ways[w]
-        before = ops.launch_counts()["pq"]
+        before = ops.launch_counts()["beam_step.pq"]
         t0 = time.perf_counter()
         res = list(eng.search_batches(batches) if pipelined
                    else (eng.search(b) for b in batches))
         qps[w].append(sum(b.shape[0] for b in batches)
                       / (time.perf_counter() - t0))
-        launches[w] = ops.launch_counts()["pq"] - before
+        launches[w] = ops.launch_counts()["beam_step.pq"] - before
         ids = np.concatenate([r.ids for r in res])
         if ids0 is None:
             ids0 = ids
@@ -385,15 +543,15 @@ def compare_serving(eng_auto, eng_buckets, batches) -> None:
 
 def main_path(dev, n: int, n_queries: int, batch: int, build_batch: int,
               seed: int):
-    import numpy as np
-    import torch
-
+    """Build and serve the deployment; returns the launch counts of this
+    run (counts set to 0 at its start) and what the calibration path needs."""
     from repro_torch import serving
-    from repro_torch.core import build, distance, search
+    from repro_torch.core import build, distance
     from repro_torch.data import REGISTRY, make_dataset
     from repro_torch.index import build_tiered_index
     from repro_torch.kernels import ops
 
+    cfg = sift1m()
     spec = REGISTRY["sift1m"]
     if n < spec.n:
         log(f"[main] N cut: {spec.n} -> {n} (build must fit the time limit)")
@@ -405,46 +563,49 @@ def main_path(dev, n: int, n_queries: int, batch: int, build_batch: int,
         f"{queries.shape[0]} ({time.perf_counter() - t0:.1f}s)")
 
     ops.reset_launch_counts()
-    cfg = build.BuildConfig(degree=SIFT1M["degree"],
-                            beam_width=SIFT1M["l_build"],
-                            alpha_min=SIFT1M["alpha_min"],
-                            alpha_max=SIFT1M["alpha_max"], batch=build_batch,
-                            seed=seed)
+    bcfg = build.BuildConfig(degree=cfg.degree, beam_width=cfg.l_build,
+                             alpha_min=cfg.alpha_min, alpha_max=cfg.alpha_max,
+                             batch=build_batch, seed=seed)
     timings: dict = {}
     t0 = time.perf_counter()
-    graph = build.build_mcgi(x, cfg, progress=lambda m: log(f"[build] {m}"),
+    graph = build.build_mcgi(x, bcfg, progress=lambda m: log(f"[build] {m}"),
                              device=dev, timings=timings)
     t_build = time.perf_counter() - t0
-    log(f"[build] MCGI build {t_build:.1f}s (R={cfg.degree} L={cfg.beam_width}"
-        f" T={cfg.iters} batch={cfg.batch}): "
+    log(f"[build] MCGI build {t_build:.1f}s (R={bcfg.degree} "
+        f"L={bcfg.beam_width} T={bcfg.iters} batch={bcfg.batch}): "
         + " ".join(f"{k}={v:.1f}s" for k, v in timings.items())
         + f"; mean out-degree {float(graph.out_degrees().float().mean()):.2f}"
         f"; build launches {ops.launch_counts()}")
+    log(f"[build] lid_knn {timings['lid_knn']:.3f}s (exact k-NN of 1 point "
+        f"in {x.shape[0]} against all through l2_distance + topk, then "
+        f"lid_estimate)")
     t0 = time.perf_counter()
-    index = build_tiered_index(x, graph, m_pq=SIFT1M["m_pq"], device=dev)
+    index = build_tiered_index(x, graph, m_pq=M_PQ, device=dev)
     sync(dev)
-    log(f"[build] PQ tier m={SIFT1M['m_pq']} in "
+    log(f"[build] PQ tier m={M_PQ} in "
         f"{time.perf_counter() - t0:.1f}s (fast tier "
         f"{index.fast_tier_bytes() / 1e6:.1f} MB, slow tier "
         f"{index.slow_tier_bytes() / 1e6:.1f} MB)")
     t0 = time.perf_counter()
-    _, gt_i = distance.brute_force_topk(queries, x, k=SIFT1M["k"])
+    before = ops.launch_counts()
+    _, gt_i = distance.brute_force_topk(queries, x, k=cfg.k)
     gt = gt_i.cpu().numpy()
-    log(f"[main] ground truth in {time.perf_counter() - t0:.1f}s")
+    after = ops.launch_counts()
+    log(f"[main] ground truth in {time.perf_counter() - t0:.1f}s "
+        f"(l2_distance {after['l2_distance'] - before['l2_distance']}, "
+        f"topk {after['topk'] - before['topk']} launches)")
 
     qn = queries.cpu().numpy()
     batches = [qn[s:s + batch] for s in range(0, qn.shape[0], batch)]
     gts = [gt[s:s + batch] for s in range(0, qn.shape[0], batch)]
-    budget = search.AdaptiveBeamBudget(
-        l_min=SIFT1M["l_min"], l_max=SIFT1M["l_search"], lam=SIFT1M["lam"],
-        probe_hops=SIFT1M["probe_hops"], hop_factor=SIFT1M["hop_factor"])
+    budget = cfg.beam_budget()
     tiered = serving.TieredBackend(index, device=dev)
     exact = serving.ExactBackend(x, graph.adj, graph.entry, device=dev)
-    eng_t = serving.SearchEngine(tiered, budget, k=SIFT1M["k"])
-    eng_e = serving.SearchEngine(exact, budget, k=SIFT1M["k"])
-    eng_f = serving.SearchEngine(tiered, None, k=SIFT1M["k"],
-                                 beam_width=SIFT1M["l_search"],
-                                 max_hops=SIFT1M["max_hops"])
+    eng_t = serving.SearchEngine(tiered, budget, k=cfg.k)
+    eng_e = serving.SearchEngine(exact, budget, k=cfg.k)
+    eng_f = serving.SearchEngine(tiered, None, k=cfg.k,
+                                 beam_width=cfg.l_search,
+                                 max_hops=cfg.max_hops)
     for eng in (eng_t, eng_e, eng_f):              # warm-up
         eng.search(qn[:64])
     runs = {
@@ -456,20 +617,72 @@ def main_path(dev, n: int, n_queries: int, batch: int, build_batch: int,
                                           batches[:1], gts[:1], n, False),
     }
     counts = ops.launch_counts()
-    log(f"[main] beam_step launches on the main path: {counts}")
-    if runs["tiered_adaptive_pipelined"]["launches"]["pq"] == 0:
+    log(f"[main] kernel launches on the main path: {counts}")
+    if runs["tiered_adaptive_pipelined"]["launches"]["beam_step.pq"] == 0:
         raise AssertionError("tiered serving never launched beam_step[pq]")
-    if runs["exact_adaptive"]["launches"]["exact"] == 0:
+    if runs["exact_adaptive"]["launches"]["beam_step.exact"] == 0:
         raise AssertionError("exact serving never launched beam_step[exact]")
-    for kind, c in counts.items():
+    for name, c in counts.items():
         if c == 0:
-            raise AssertionError(f"beam_step[{kind}] was never launched")
+            raise AssertionError(f"{name} was never launched on the main "
+                                 f"path")
     rec = runs["tiered_adaptive_pipelined"]["recall"]
     if rec < RECALL_FLOOR:
         raise AssertionError(f"tiered adaptive recall@10 {rec:.4f} < "
                              f"{RECALL_FLOOR}")
-    compare_serving(eng_t, serving.SearchEngine(tiered, budget, k=SIFT1M["k"],
+    compare_serving(eng_t, serving.SearchEngine(tiered, budget, k=cfg.k,
                                                 num_buckets=4), batches)
+    return counts, dict(n=n, qn=qn, gt=gt, batches=batches, gts=gts,
+                        tiered=tiered, exact=exact)
+
+
+# --------------------------------------------------------------- phase 3b
+
+def calibration_path(world) -> dict:
+    """Fit the budget law of each adaptive engine to its recall target with
+    ``SearchEngine.recalibrate(joint=True)``, then serve the stream with
+    the fitted law.  Returns the launch counts of this run."""
+    from repro_torch import serving
+    from repro_torch.kernels import ops
+
+    cfg = sift1m()
+    n, qn, gt = world["n"], world["qn"], world["gt"]
+    ops.reset_launch_counts()
+    served = {}
+    for name, backend, target in (("exact", world["exact"],
+                                   cfg.recall_target),
+                                  ("tiered", world["tiered"],
+                                   TIERED_TARGET)):
+        eng = serving.SearchEngine(backend, cfg.beam_budget(), k=cfg.k)
+        t0 = time.perf_counter()
+        res = eng.recalibrate(qn, gt, recall_target=target, joint=True,
+                              sample=CALIB_SAMPLE)
+        secs = time.perf_counter() - t0
+        fit = eng.budget_cfg
+        log(f"[calibrate] {name}: target {target:.2f} "
+            f"{'achieved' if res.achieved else 'MISSED'}: lam={res.lam:.4f} "
+            f"l_min={fit.l_min} hop_factor={fit.hop_factor} "
+            f"recall={res.recall:.4f} on {CALIB_SAMPLE} held-out queries, "
+            f"{len(res.history)} evaluations, {secs:.2f}s; joint history "
+            f"{[(lm, round(lam, 4), hf, round(r, 4), ok) for lm, lam, hf, r, ok in res.joint_history]}")
+        if name == "exact" and not res.achieved:
+            raise AssertionError(f"the exact fit missed its target {target}")
+        eng.search(qn[:64])                                # warm-up
+        served[name] = serve_run(f"{name} adaptive, fitted law", eng,
+                                 world["batches"], world["gts"], n,
+                                 name == "tiered")
+        served[name]["target"] = target
+    counts = ops.launch_counts()
+    log(f"[calibrate] kernel launches on the calibration path: {counts}")
+    for kind in ("exact", "pq"):
+        if counts[f"beam_step.{kind}"] == 0:
+            raise AssertionError(f"beam_step.{kind} was never launched on "
+                                 f"the calibration path")
+    floor = cfg.recall_target - SERVED_RECALL_SLACK
+    if served["exact"]["recall"] < floor:
+        raise AssertionError(f"exact adaptive with the fitted law served "
+                             f"recall@10 {served['exact']['recall']:.4f} < "
+                             f"{floor:.2f}")
     return counts
 
 
@@ -488,7 +701,7 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.join(ROOT, "src"))
-    from repro_torch.kernels import beam_step, ops
+    from repro_torch.kernels import _build, ops
 
     dev = torch.device("cuda", 0)
     card = gpu_name_power()
@@ -496,27 +709,34 @@ def main(argv=None) -> int:
     log(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
         f"capability {torch.cuda.get_device_capability(dev)}")
     t0 = time.perf_counter()
-    beam_step.library_path()
-    beam_step._library()
-    log(f"[build] beam_step kernel built and loaded in "
+    _build.build_all(ops.LIBRARIES)
+    for lib in ops.LIBRARIES:
+        lib.fn()
+    log(f"[build] {len(ops.LIBRARIES)} kernel libraries built and loaded in "
         f"{time.perf_counter() - t0:.1f}s")
-    for line in beam_step.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build] ptxas: {line.strip()}")
+    for lib in ops.LIBRARIES:
+        for line in lib.build_log.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build] ptxas {lib.name}: {line.strip()}")
 
-    kernels = [check_kernel(kind, dev, KERNEL_N, KERNEL_Q,
-                            SIFT1M["l_search"], SIFT1M["degree"], 12,
-                            args.seed + 7 * i)
+    cfg = sift1m()
+    kernels = [check_kernel(kind, dev, KERNEL_N, KERNEL_Q, cfg.l_search,
+                            cfg.degree, 12, args.seed + 7 * i)
                for i, kind in enumerate(("exact", "pq"))]
     torch.cuda.empty_cache()
+    kernels += check_bulk_kernels(dev, args.seed)
+    torch.cuda.empty_cache()
 
-    counts = main_path(dev, args.n, N_QUERIES, SERVE_BATCH, BUILD_BATCH,
-                       args.seed)
+    counts, world = main_path(dev, args.n, N_QUERIES, SERVE_BATCH,
+                              BUILD_BATCH, args.seed)
+    calib_counts = calibration_path(world)
     for rec in kernels:
-        rec["launches"] = counts[rec["name"].split(".")[1]]
-    log("kernels: " + json.dumps({r["name"]: {"launches": r["launches"],
-                                               "phase2": r["verdict"]}
-                                  for r in kernels}))
+        rec["launches"] = counts[rec["name"]]
+        rec["calibration_launches"] = calib_counts[rec["name"]]
+    log("kernels: " + json.dumps({r["name"]: {
+        "launches": r["launches"],
+        "calibration_launches": r["calibration_launches"],
+        "phase2": r["verdict"]} for r in kernels}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

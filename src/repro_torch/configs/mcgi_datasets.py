@@ -1,0 +1,73 @@
+"""The paper's dataset configurations (Table 2/3): the port's copy of
+``repro/configs/mcgi_datasets.py``.
+
+Build parameters (R, L_build, alpha range, m_PQ) are the paper's Table 2
+values; the serving defaults are the jointly calibrated budget laws of the
+reference.  The reference's dry-run registry (``base.register`` /
+``ArchSpec``) and the per-shard law fields wait for the port's launch and
+distributed slices.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+from repro_torch.core import calibrate as calibrate_mod
+from repro_torch.core.search import AdaptiveBeamBudget
+
+
+@dataclasses.dataclass(frozen=True)
+class McgiDatasetConfig:
+    name: str
+    n: int
+    d: int
+    degree: int          # R
+    l_build: int         # L_build
+    m_pq: int | None     # PQ bytes (None = full precision in memory tier)
+    data_dtype: str      # "float32" | "uint8"
+    alpha_min: float = 1.0
+    alpha_max: float = 1.5
+    queries: int = 4096          # global query batch for the serve step
+    l_search: int = 128
+    k: int = 10
+    max_hops: int = 192
+    # Adaptive budget-law serving defaults (Prop. 4.2 + calibration pass):
+    # ``lam`` and ``l_min`` jointly calibrated against ``recall_target``
+    # (smallest feasible budget floor, then largest feasible lam there).
+    lam: float = 0.35
+    l_min: int | None = None     # None -> max(8, l_search // 8)
+    probe_hops: int = 8
+    hop_factor: int = 4
+    recall_target: float = 0.95
+    budget_buckets: int = 4      # ceiling of the auto-picked bucket family
+
+    def beam_budget(self) -> AdaptiveBeamBudget:
+        """The serving engine's budget law for this dataset: l_max =
+        l_search, l_min the calibrated floor (default: an eighth, floor 8)."""
+        l_min = self.l_min if self.l_min is not None else max(
+            8, self.l_search // 8)
+        return AdaptiveBeamBudget(
+            l_min=min(l_min, self.l_search), l_max=self.l_search,
+            lam=self.lam, probe_hops=self.probe_hops,
+            hop_factor=self.hop_factor)
+
+    def jointly_calibrated_beam_budget(self, make_eval) -> AdaptiveBeamBudget:
+        """Joint (lam, l_min) re-fit against this dataset's recall target
+        (``make_eval`` builds an evaluator specialised to one candidate
+        floor)."""
+        base = self.beam_budget()
+        return calibrate_mod.calibrate_budget_law_joint(
+            make_eval, base, self.recall_target).budget_cfg(base)
+
+
+DATASETS = {c.name: c for c in (
+    McgiDatasetConfig("mcgi-sift1m", 1_000_000, 128, 64, 100, None, "float32",
+                      lam=0.25, l_min=8),
+    McgiDatasetConfig("mcgi-glove100", 1_200_000, 100, 64, 100, None,
+                      "float32", lam=0.3, l_min=8),
+    McgiDatasetConfig("mcgi-gist1m", 1_000_000, 960, 96, 150, None, "float32",
+                      lam=0.5, l_min=16),
+    McgiDatasetConfig("mcgi-sift1b", 1_000_000_000, 128, 32, 50, 16, "uint8",
+                      lam=0.25, l_min=8),
+    McgiDatasetConfig("mcgi-t2i1b", 1_000_000_000, 200, 32, 50, 16, "float32",
+                      lam=0.45, l_min=16),
+)}

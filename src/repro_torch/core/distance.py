@@ -1,12 +1,17 @@
 """Distance primitives (port of :mod:`repro.core.distance`, L2 only).
 
 Graph algorithms work on *squared* L2 distances; the LID estimator takes the
-square root itself.  Matrix products go to ``torch.matmul`` (full float32:
-the package disables TF32), as the reference leaves them to XLA.
+square root itself.  The exact scans (:func:`brute_force_topk`,
+:func:`knn_graph`) run through the ``l2_distance`` and ``topk`` kernels
+(:mod:`repro_torch.kernels.ops`).  :func:`squared_l2` stays the library
+expression (``torch.matmul`` in full float32: the package disables TF32)
+for the callers that want a plain distance matrix.
 """
 from __future__ import annotations
 
 import torch
+
+from repro_torch.kernels import ops
 
 L2 = "l2"
 
@@ -25,56 +30,30 @@ def pairwise(q: torch.Tensor, x: torch.Tensor, metric: str = L2) -> torch.Tensor
     return squared_l2(q, x)
 
 
-def _stable_smallest(d: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """Positions and values of the k smallest entries per row, in the order a
-    stable ascending argsort gives them (ties to the lower position).
-
-    ``torch.topk`` picks k entries, ties at the k-th value t in no promised
-    order.  Rows where more entries equal t than were picked are redone
-    exactly: every entry below t, then the lowest positions equal to t.
-    """
-    vals, pos = torch.topk(d, k, dim=1, largest=False, sorted=True)
-    t = vals[:, -1:]
-    redo = ((d == t).sum(1) > (vals == t).sum(1)).nonzero()[:, 0]
-    if redo.numel():
-        dr, tr = d[redo], t[redo]
-        less, eq = dr < tr, dr == tr
-        need = k - less.sum(1, keepdim=True)
-        take = less | (eq & (torch.cumsum(eq, 1) <= need))
-        pos[redo] = take.nonzero()[:, 1].view(-1, k)
-        vals[redo] = torch.gather(dr, 1, pos[redo])
-    # Order the k picked entries by (value, position).
-    by_pos = torch.argsort(pos, dim=1)
-    pos, vals = torch.gather(pos, 1, by_pos), torch.gather(vals, 1, by_pos)
-    order = torch.argsort(vals, dim=1, stable=True)
-    return torch.gather(pos, 1, order), torch.gather(vals, 1, order)
-
-
 def brute_force_topk(q: torch.Tensor, x: torch.Tensor, k: int,
                      metric: str = L2, chunk: int = 65536
                      ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Exact top-k nearest neighbours by a chunked scan over the base set.
-
-    Each chunk's candidates merge into the running best with a stable sort,
-    so ties go to the lower id wherever they fall; the result equals one
-    stable argsort over all N and does not depend on ``chunk``.
+    """Exact top-k nearest neighbours (k <= 64) by a chunked scan over the
+    base set: for each chunk one :func:`ops.bulk_l2` and one
+    :func:`ops.topk` (the kernels on the card, their plain versions on the
+    CPU), merged into the running best with a stable sort, so ties go to
+    the lower id wherever they fall; the result equals one stable argsort
+    over all N and does not depend on ``chunk``.
 
     Returns (dists, ids): each (Q, k), ascending (ids int32; -1/inf where
     N < k).
     """
+    if metric != L2:
+        raise ValueError(f"unsupported metric {metric!r} (the port has L2)")
     n, nq = x.shape[0], q.shape[0]
+    q, x = q.contiguous(), x.contiguous()
     best_d = torch.full((nq, k), torch.inf, dtype=torch.float32, device=q.device)
     best_i = torch.full((nq, k), -1, dtype=torch.int32, device=q.device)
     for start in range(0, n, chunk):
-        d = pairwise(q, x[start:start + chunk], metric)
-        c = d.shape[1]
-        if c > 2 * k:
-            pos, d = _stable_smallest(d, k)
-        else:
-            pos = torch.arange(c, device=q.device).expand(nq, c)
-        ids = (pos + start).to(torch.int32)
+        d = ops.bulk_l2(q, x[start:start + chunk])
+        d, pos = ops.topk(d, min(k, d.shape[1]))
         cat_d = torch.cat([best_d, d], 1)
-        cat_i = torch.cat([best_i, ids], 1)
+        cat_i = torch.cat([best_i, pos + start], 1)
         order = torch.argsort(cat_d, dim=1, stable=True)[:, :k]
         best_d = torch.gather(cat_d, 1, order)
         best_i = torch.gather(cat_i, 1, order)
@@ -83,7 +62,8 @@ def brute_force_topk(q: torch.Tensor, x: torch.Tensor, k: int,
 
 def knn_graph(x: torch.Tensor, k: int, metric: str = L2, chunk_q: int = 1024,
               chunk: int = 65536) -> tuple[torch.Tensor, torch.Tensor]:
-    """Exact k-NN of every point against the dataset, self excluded.
+    """Exact k-NN of every point against the dataset, self excluded
+    (k + 1 <= 64): one :func:`brute_force_topk` per ``chunk_q`` rows.
 
     Returns (dists, ids): each (N, k), ascending squared L2.
     """
@@ -101,6 +81,13 @@ def knn_graph(x: torch.Tensor, k: int, metric: str = L2, chunk_q: int = 1024,
 
 
 def recall_at_k(pred_ids: torch.Tensor, true_ids: torch.Tensor) -> torch.Tensor:
-    """Mean Recall@k between predicted and ground-truth id sets (both (Q, k))."""
+    """Mean Recall@k between predicted and ground-truth id sets (both (Q, k)).
+
+    The mean is the hit count times the float32 reciprocal of the count, as
+    XLA takes ``jnp.mean``: a correctly rounded division can land one ulp
+    lower, which flips a calibration fit whose recall equals its target.
+    """
     hits = (pred_ids[:, :, None] == true_ids[:, None, :]).any(1)
-    return hits.float().mean()
+    inv = torch.tensor(1.0 / max(hits.numel(), 1), dtype=torch.float32,
+                       device=hits.device)
+    return hits.sum(dtype=torch.float32) * inv

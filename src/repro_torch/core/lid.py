@@ -11,6 +11,7 @@ import dataclasses
 import torch
 
 from repro_torch.core import distance as dist_mod
+from repro_torch.kernels import ops
 
 # Zero/duplicate distances would send ln(r_i/r_k) to -inf.
 _EPS = 1e-12
@@ -54,9 +55,13 @@ def calibrate(lid: torch.Tensor) -> LidProfile:
 def estimate_dataset_lid(x: torch.Tensor, k: int = 16, chunk_q: int = 4096,
                          chunk: int = 65536) -> LidProfile:
     """Phase 1 (Geometric Calibration) of Algorithm 1: exact k-NN of every
-    point, batched MLE, population aggregation."""
+    point, batched MLE, population aggregation.  The estimate runs through
+    the ``lid_estimate`` kernel on :func:`knn_graph`'s ascending output,
+    with that kernel's clamp (1e-24 on d2; the reference's
+    :func:`lid_from_dists` clamps r at 1e-12, which differs only for
+    d2 < 1e-24)."""
     d, _ = dist_mod.knn_graph(x, k=k, chunk_q=chunk_q, chunk=chunk)
-    return calibrate(lid_from_dists(d, squared=True))
+    return calibrate(ops.lid_estimate(d))
 
 
 def online_lid(cand_dists: torch.Tensor, k: int) -> torch.Tensor:

@@ -1,0 +1,51 @@
+"""The squared-L2 distance matrix as a hand-written CUDA kernel for Hopper.
+
+Replaces ``repro/kernels/l2_distance.py::l2_distance`` (Pallas, TPU).  The
+source is ``repro_torch/csrc/l2_distance.cu``: a float32 SIMT GEMM with the
+norms fused (no tensor cores, no TF32).  The plain version is
+:func:`repro_torch.kernels.ref.l2_distance_ref`; the device dispatch lives in
+:func:`repro_torch.kernels.ops.bulk_l2`.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+
+LIB = _build.Library("l2_distance", "repro_l2_distance",
+                     [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_MAX_Q = 65535 * 128          # the grid's y dimension covers 128 rows each
+
+# Kernel launches since the last reset: one per launch, nowhere else.
+launches = {"l2_distance": 0}
+
+
+def l2_distance_cuda(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """(Q, D) x (N, D) -> (Q, N) float32 squared L2 on the card.  Both
+    operands float32, or both bfloat16 (accumulated in float32)."""
+    dev = q.device
+    _build.check_card(dev, "l2_distance")
+    if q.dim() != 2 or x.dim() != 2 or q.shape[1] != x.shape[1]:
+        raise ValueError(f"l2_distance: shapes {tuple(q.shape)} and "
+                         f"{tuple(x.shape)} are not (Q, D) and (N, D)")
+    if q.dtype not in _DTYPES or x.dtype != q.dtype:
+        raise ValueError(f"l2_distance takes float32 or bfloat16 operands of "
+                         f"one type, got {q.dtype} and {x.dtype}")
+    nq, d = q.shape
+    n = x.shape[0]
+    if nq > _MAX_Q:
+        raise ValueError(f"l2_distance: at most {_MAX_Q} query rows, got {nq}")
+    _build.need(q, "q", q.dtype, (nq, d), dev)
+    _build.need(x, "x", q.dtype, (n, d), dev)
+    out = torch.empty((nq, n), dtype=torch.float32, device=dev)
+    if nq == 0 or n == 0:
+        return out
+    rc = LIB.fn()(_DTYPES[q.dtype], nq, n, d, q.data_ptr(), x.data_ptr(),
+                  out.data_ptr(), _build.stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"l2_distance kernel launch failed: CUDA error {rc}")
+    launches["l2_distance"] += 1
+    return out

@@ -11,7 +11,43 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import beam_step as _beam
+from repro_torch.kernels import l2_distance as _l2
+from repro_torch.kernels import lid_kernel as _lid
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import topk as _topk
+
+# Every kernel library of the port (``_build.build_all`` compiles them at once).
+LIBRARIES = (_beam.LIB, _l2.LIB, _topk.LIB, _lid.LIB)
+
+
+def _device(t: torch.Tensor, op: str) -> torch.device:
+    if t.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"{op} has no implementation for device {t.device}")
+    return t.device
+
+
+def bulk_l2(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """(Q, D) x (N, D) -> (Q, N) float32 squared L2 (float32 or bfloat16
+    operands, accumulated in float32)."""
+    if _device(q, "bulk_l2").type == "cuda":
+        return _l2.l2_distance_cuda(q, x)
+    return _ref.l2_distance_ref(q, x)
+
+
+def topk(d: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(Q, N) -> ((Q, k) ascending values, (Q, k) int32 ids), ties to the
+    lower id; 1 <= k <= min(64, N) on every device."""
+    if _device(d, "topk").type == "cuda":
+        return _topk.topk_cuda(d, k)
+    _topk.check_k(k, d.shape[1])
+    return _ref.topk_ref(d, k)
+
+
+def lid_estimate(knn_d2: torch.Tensor) -> torch.Tensor:
+    """(B, k) ascending squared k-NN distances -> (B,) Hill LID."""
+    if _device(knn_d2, "lid_estimate").type == "cuda":
+        return _lid.lid_estimate_cuda(knn_d2)
+    return _ref.lid_ref(knn_d2)
 
 
 def beam_step(state, ctxs, adj, table, budgets, hop_limits, *, kind: str,
@@ -40,9 +76,17 @@ def beam_step(state, ctxs, adj, table, budgets, hop_limits, *, kind: str,
 
 
 def launch_counts() -> dict[str, int]:
-    """Kernel launches per kind since the last :func:`reset_launch_counts`."""
-    return dict(_beam.launches)
+    """Launches of every kernel since the last :func:`reset_launch_counts`:
+    ``beam_step.exact``, ``beam_step.pq``, ``l2_distance``, ``topk`` and
+    ``lid_estimate``."""
+    out = {f"beam_step.{k}": v for k, v in _beam.launches.items()}
+    for mod in (_l2, _topk, _lid):
+        out.update(mod.launches)
+    return out
 
 
 def reset_launch_counts() -> None:
     _beam.reset_launch_counts()
+    for mod in (_l2, _topk, _lid):
+        for k in mod.launches:
+            mod.launches[k] = 0

@@ -13,6 +13,50 @@ import torch
 INVALID = -1
 
 
+def l2_distance_ref(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """(Q, D), (N, D) -> (Q, N) squared L2, accumulated in float32:
+    max(|q|^2 - 2 q.x + |x|^2, 0)."""
+    q, x = q.float(), x.float()
+    qn = (q * q).sum(-1, keepdim=True)
+    xn = (x * x).sum(-1)
+    return (qn - 2.0 * (q @ x.T) + xn[None, :]).clamp_min(0.0)
+
+
+def topk_ref(d: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(Q, N) -> ((Q, k) ascending values, (Q, k) int32 ids) in
+    ``lax.top_k``'s order: ties go to the lower index, so the ids are
+    distinct even where a row has fewer than k finite entries.
+
+    ``torch.topk`` picks k entries, ties at the k-th value t in no promised
+    order.  Rows where more entries equal t than were picked are redone
+    exactly: every entry below t, then the lowest positions equal to t.
+    """
+    vals, pos = torch.topk(d, k, dim=1, largest=False, sorted=True)
+    t = vals[:, -1:]
+    redo = ((d == t).sum(1) > (vals == t).sum(1)).nonzero()[:, 0]
+    if redo.numel():
+        dr, tr = d[redo], t[redo]
+        less, eq = dr < tr, dr == tr
+        need = k - less.sum(1, keepdim=True)
+        take = less | (eq & (torch.cumsum(eq, 1) <= need))
+        pos[redo] = take.nonzero()[:, 1].view(-1, k)
+        vals[redo] = torch.gather(dr, 1, pos[redo])
+    # Order the k picked entries by (value, position).
+    by_pos = torch.argsort(pos, dim=1)
+    pos, vals = torch.gather(pos, 1, by_pos), torch.gather(vals, 1, by_pos)
+    order = torch.argsort(vals, dim=1, stable=True)
+    return (torch.gather(vals, 1, order),
+            torch.gather(pos, 1, order).to(torch.int32))
+
+
+def lid_ref(knn_d2: torch.Tensor) -> torch.Tensor:
+    """(B, k) ascending squared k-NN distances -> (B,) Hill LID estimates,
+    with r = sqrt(max(d2, 1e-24))."""
+    r = torch.sqrt(knn_d2.float().clamp_min(1e-24))
+    mean_log = torch.log(r / r[:, -1:]).mean(-1)
+    return -1.0 / mean_log.clamp_max(-1.0 / 4096.0)
+
+
 def _as_lanes(v, q: int, device) -> torch.Tensor:
     return torch.as_tensor(v, dtype=torch.int32, device=device).expand(q)
 

@@ -5,11 +5,15 @@ recall@k, QPS, batch latency, mean budget and walk hops.
     PYTHONPATH=src python -m repro_torch.launch.serve --device cuda \\
         --dataset tiny-mixture --beam 48 --batch 64 --num-batches 20 \\
         [--backend tiered|exact] [--adaptive [--l-min 16] [--l-max 64] \\
-         [--lam 0.35] [--buckets auto] [--pipeline]] [--filter-frac F]
+         [--lam 0.35] [--buckets auto] [--pipeline] \\
+         [--calibrate [--joint] [--recall-target 0.95] [--calib-sample 256]]] \\
+        [--filter-frac F]
 
 In-memory modes only: fixed beam, ``--adaptive`` (probe -> budget ->
 bucketed continue -> rerank), ``--buckets``, ``--pipeline`` (the
-double-buffered stream) and ``--filter-frac`` (per-query namespaces
+double-buffered stream), ``--calibrate`` (fit ``lam``, and ``hop_factor``
+where it binds, to ``--recall-target`` on a held-out sample before serving;
+``--joint`` fits ``l_min`` too) and ``--filter-frac`` (per-query namespaces
 enforced in-graph).  ``--device cuda`` (default) runs the walk's hops
 through the hand-written CUDA kernel; ``--device cpu`` runs the plain
 PyTorch hop.
@@ -59,14 +63,24 @@ def main(argv=None) -> None:
     ap.add_argument("--buckets", default="auto", type=buckets_arg)
     ap.add_argument("--pipeline", action="store_true",
                     help="double-buffered batch stream (identical results)")
+    ap.add_argument("--calibrate", action="store_true",
+                    help="fit lam to --recall-target on a held-out sample "
+                         "before serving")
+    ap.add_argument("--joint", action="store_true",
+                    help="with --calibrate: fit (lam, l_min) jointly")
+    ap.add_argument("--recall-target", type=float, default=0.95)
+    ap.add_argument("--calib-sample", type=int, default=256)
     ap.add_argument("--filter-frac", type=float, default=None, metavar="F",
                     help="split the corpus into ~1/F namespaces and enforce "
                          "each query's namespace in-graph")
     args = ap.parse_args(argv)
-    if not args.adaptive and (args.pipeline or (args.buckets != "auto"
-                                                and args.buckets > 1)):
-        ap.error("--buckets/--pipeline configure the adaptive engine; pass "
-                 "--adaptive as well")
+    if not args.adaptive and (args.calibrate or args.pipeline
+                              or (args.buckets != "auto"
+                                  and args.buckets > 1)):
+        ap.error("--calibrate/--buckets/--pipeline configure the adaptive "
+                 "engine; pass --adaptive as well")
+    if args.joint and not args.calibrate:
+        ap.error("--joint refines --calibrate; pass both")
     if args.filter_frac is not None and not 0.0 < args.filter_frac <= 1.0:
         ap.error("--filter-frac must be in (0, 1]")
 
@@ -103,6 +117,17 @@ def main(argv=None) -> None:
     engine = serving.SearchEngine(backend, budget_cfg, k=args.k,
                                   beam_width=args.beam,
                                   num_buckets=args.buckets)
+    if args.calibrate:
+        t0 = time.time()
+        result = engine.recalibrate(
+            queries, gt_i, recall_target=args.recall_target,
+            joint=args.joint, sample=args.calib_sample)
+        fitted = engine.budget_cfg
+        print(f"[serve] calibrated lam={result.lam:.4f} "
+              f"l_min={fitted.l_min} hop_factor={result.hop_factor} "
+              f"recall={result.recall:.4f} (target {result.target:.2f}, "
+              f"{'hit' if result.achieved else 'MISSED'}, "
+              f"{len(result.history)} evals, {time.time() - t0:.1f}s)")
 
     qn = queries.cpu().numpy()
     xn = x.cpu().numpy()

@@ -29,12 +29,13 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
-from typing import Any, Iterable, Iterator
+from typing import Any, Callable, Iterable, Iterator
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.core import calibrate as calib
 from repro_torch.core import search as search_mod
 from repro_torch.index import disk as disk_mod
 from repro_torch.serving import pipeline as pipe
@@ -140,6 +141,11 @@ class ExactBackend(_StagedRerankMixin):
     def rerank(self, beam_ids, beam_d, queries, k: int):
         return beam_ids[:, :k], beam_d[:, :k]
 
+    def recall_eval(self, queries, gt_ids, *, k, sample, seed, base_cfg):
+        return calib.exact_recall_eval(
+            self.x, self.adj, self.entry, queries, gt_ids, k=k,
+            sample=sample, seed=seed, base_cfg=base_cfg)
+
     def fixed(self, queries, *, beam_width: int, max_hops: int, k: int,
               excl=None):
         ids, d2, stats = search_mod.beam_search_exact(
@@ -190,6 +196,11 @@ class TieredBackend(_StagedRerankMixin):
             return beam_ids[:, :k], beam_d[:, :k]
         q = torch.as_tensor(queries, dtype=torch.float32, device=self.device)
         return search_mod._rerank_slow_tier(beam_ids, self.index.vectors, q, k)
+
+    def recall_eval(self, queries, gt_ids, *, k, sample, seed, base_cfg):
+        return calib.tiered_recall_eval(
+            self.index, queries, gt_ids, k=k, sample=sample, seed=seed,
+            base_cfg=base_cfg)
 
     def fixed(self, queries, *, beam_width: int, max_hops: int, k: int,
               excl=None):
@@ -479,6 +490,54 @@ class SearchEngine:
 
     def _staged(self) -> bool:
         return self.budget_cfg is not None
+
+    # ------------------------------------------------------ live reconfigure
+
+    def recalibrate(self, queries=None, gt_ids=None, *,
+                    recall_target: float = 0.95, joint: bool = False,
+                    sample: int = 256, seed: int = 0,
+                    eval_recall: Callable | None = None,
+                    make_eval: Callable | None = None, **fit_kw):
+        """Refit the budget law against ``recall_target`` and deploy it.
+
+        ``joint=True`` runs the joint (lam, l_min) fit
+        (:func:`repro_torch.core.calibrate.calibrate_budget_law_joint`),
+        otherwise the lam bisection of
+        :func:`~repro_torch.core.calibrate.calibrate_budget_law`.  The
+        evaluators default to the backend's own recall measurement on a
+        held-out sample of ``queries`` / ``gt_ids``; ``eval_recall`` /
+        ``make_eval`` override them.  Returns the
+        :class:`~repro_torch.core.calibrate.CalibrationResult`; the fitted
+        config is live on return.
+        """
+        if self.budget_cfg is None:
+            raise ValueError("recalibrate() needs an adaptive engine "
+                             "(budget_cfg is None)")
+        base = self.budget_cfg
+        if joint:
+            if make_eval is None:
+                if queries is None or gt_ids is None:
+                    raise ValueError("joint recalibration needs queries + "
+                                     "gt_ids (or make_eval)")
+
+                def make_eval(cfg):
+                    return self.backend.recall_eval(
+                        queries, gt_ids, k=self.k, sample=sample, seed=seed,
+                        base_cfg=cfg)
+            result = calib.calibrate_budget_law_joint(
+                make_eval, base, recall_target, **fit_kw)
+        else:
+            if eval_recall is None:
+                if queries is None or gt_ids is None:
+                    raise ValueError("recalibration needs queries + gt_ids "
+                                     "(or eval_recall)")
+                eval_recall = self.backend.recall_eval(
+                    queries, gt_ids, k=self.k, sample=sample, seed=seed,
+                    base_cfg=base)
+            result = calib.calibrate_budget_law(
+                eval_recall, base, recall_target, **fit_kw)
+        self.budget_cfg = result.budget_cfg(base)
+        return result
 
     def _resolve_ceilings(self, budgets_np, cfg) -> tuple[int, ...] | None:
         if self.num_buckets == "auto":

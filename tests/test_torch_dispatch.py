@@ -137,11 +137,11 @@ def test_kernel_matches_plain_on_card(card, kind):
     args = [t.to(card) for t in (ctxs, adj, table, b, h)]
     st_k = tuple(t.to(card) for t in state)
     st_p = st_k
-    before = ops.launch_counts()[kind]
+    before = ops.launch_counts()[f"beam_step.{kind}"]
     for _ in range(12):
         st_k = ops.beam_step(tuple(t.clone() for t in st_k), *args, kind=kind)
         st_p = ref.beam_step_ref(st_p, *args, kind=kind)
         for a, w in zip(st_k, st_p):
             assert torch.equal(a, w)
-    assert ops.launch_counts()[kind] == before + 12
+    assert ops.launch_counts()[f"beam_step.{kind}"] == before + 12
     assert np.all(st_p[4].cpu().numpy() <= h.numpy())

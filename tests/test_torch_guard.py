@@ -66,6 +66,11 @@ eng = serving.SearchEngine(
     search.AdaptiveBeamBudget(l_min=4, l_max=16), k=5)
 res = eng.search(q[:8].numpy())
 assert res.ids.shape == (8, 5) and (res.ids >= 0).all()
+from repro_torch.core import distance
+_, gt = distance.brute_force_topk(q[:32], x, 5)
+fit = eng.recalibrate(q[:32].numpy(), gt.numpy(), recall_target=0.5,
+                      joint=True, sample=16)
+assert fit.l_min is not None and eng.budget_cfg.lam == fit.lam
 assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                or m == "repro" for m in sys.modules)
 print("ok")
