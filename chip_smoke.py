@@ -6,10 +6,11 @@
 Phases, each printed on its own lines; any failure exits non-zero:
 
 1. device and build — the card's name and power limit (nvidia-smi), then the
-   four kernel libraries (``beam_step``, ``l2_distance``, ``topk``,
-   ``lid_kernel``) compiled from ``src/repro_torch/csrc`` with nvcc, one
-   process each, all started together;
-2. kernel vs plain version, at the main path's own shapes —
+   six kernel libraries (``beam_step``, ``l2_distance``, ``topk``,
+   ``lid_kernel``, ``pq_scan``, ``decode_attention``) compiled from
+   ``src/repro_torch/csrc`` with nvcc, one process each, all started
+   together;
+2. kernel vs plain version, at the main paths' own shapes —
    ``beam_step`` in both kinds at serving shape (Q=1024, L=128, R=64, N=1M;
    D=128 exact, M=16 x K=256 PQ) for 12 hops: bit-identical to
    ``beam_step_ref`` on integer-valued tables and contexts, and on float data
@@ -19,10 +20,16 @@ Phases, each printed on its own lines; any failure exits non-zero:
    128 within 2e-2 / 2e-1; ``topk`` on that float32 output at k = 17 and 10
    (and on a row with planted ties, a row with fewer than k finite entries
    and 8 rows cut into segments): values bitwise and ids exactly equal;
-   ``lid_estimate`` at 1M x 16 within rtol 1e-4.  Each kernel's device time
-   per launch (launches queued back to back behind a sleep kernel, so host
-   work is not timed), the plain version's time, the library call's time
-   where one PyTorch call computes the same function, and the bound;
+   ``lid_estimate`` at 1M x 16 within rtol 1e-4; ``decode_attention`` at
+   qwen2-7b's heads (28 query, 4 KV, d=128, bfloat16 cache) at
+   [lm-serve]'s shape (B=8, S=160), at the ``decode_32k`` shape with batch
+   cut to 16 and at the ``long_500k`` shape, ragged kv_len including 0, 1
+   and S, within 3e-4; ``pq_scan`` at
+   (256, 16, 256) LUTs x (1M, 16) codes, bit for bit on integer-valued LUTs
+   and within 1e-5 on float LUTs.  Each kernel's device time per launch
+   (launches queued back to back behind a sleep kernel, so host work is not
+   timed), the plain version's time, the library call's time where one
+   PyTorch call computes the same function, and the bound;
 3. the main path at the ``mcgi-sift1m`` deployment (the paper's Table 2,
    ``repro_torch/configs/mcgi_datasets.py``: N=1M, D=128, R=64,
    L_build=100, alpha in [1, 1.5], l_search=128, k=10, max_hops=192,
@@ -32,7 +39,7 @@ Phases, each printed on its own lines; any failure exits non-zero:
    ``lid_estimate``, then the alpha-mapped prune), PQ tier, ground truth,
    then serving through the engine — tiered adaptive pipelined (the ``pq``
    kind), exact adaptive (the ``exact`` kind) and one fixed-beam batch at
-   beam 128; fails if any of the five kernels was never launched,
+   beam 128; fails if any of the five MCGI kernels was never launched,
    tiered-adaptive recall@10 < 0.80, or any result id lies outside [-1, N);
    after the launch counts are read, the tiered adaptive stream is served
    again as one ``search`` per batch and with 4 budget buckets, to compare
@@ -43,8 +50,33 @@ Phases, each printed on its own lines; any failure exits non-zero:
    256 held-out queries, then the 10k stream served with each fitted law;
    fails if the exact fit is not achieved, its served recall@10 falls below
    0.92, or a ``beam_step`` kind was never launched;
-4. the kernels line, then one JSON object per the port's contract, and the
-   device line last.
+3c. [adc] bulk ADC retrieval — ``adc_topk(k=10)`` of the 10,000 queries
+   against phase 3's 1M x 16 PQ codes, in chunks of 256 queries (one
+   ``pq_scan`` and one ``topk`` each); recall@10 against the exact ground
+   truth, printed with no gate (exhaustive ADC without a rerank), and the
+   time of one ``retrieval_cand``-shaped call (1 query x 1M candidates);
+   fails unless both kernels launched once per chunk, and unless the
+   first chunk's results and the 1-query call's equal ``pq_scan_ref`` +
+   ``topk_ref`` on the same LUTs, values and ids;
+4. the LM paths, with the MCGI world freed — qwen2-7b at full width
+   (``repro_torch/configs/qwen2_7b.py``: 28 layers, d_model 3584, 28 query
+   and 4 KV heads, d_ff 18944, vocab 152064, QKV bias), weights drawn from
+   --seed in bfloat16 on the card:
+   [lm-serve] 8 prompts of 128 tokens teacher-forced through
+   ``decode_step`` into a cache of 160, then greedy generation to 32
+   tokens a row; ``prefill(prompts)``'s last logits against the decode
+   path's at position 127 within a relative L2 error of 5e-2;
+   ``decode_attention``'s outputs at layer 0 of steps 0, 127 and 158
+   within 3e-4 of its plain version on the same tensors; a second run
+   must generate identical tokens; tokens/s and the step's p50 / p99;
+   [lm-decode_32k] (B=16 of the cell's 128, S=32768) and [lm-long_500k]
+   (B=1, S=524288): the cache filled with random bfloat16 values from the
+   seed, kv_len = S - 1, 16 steps: the step's p50 / p99 ms and tokens/s
+   against its bound, ``decode_attention``'s device ms per launch and its
+   share of the step; fails unless ``decode_attention`` launched 28 times a
+   step on each path;
+5. the kernels line (launches of each kernel on every path), then one JSON
+   object per the port's contract, and the device line last.
 
 Needs one CUDA card; there is no CPU path.
 """
@@ -78,9 +110,30 @@ CSRC = "src/repro_torch/csrc/"
 REPLACES = {"beam_step": "src/repro/kernels/beam_step.py:180",
             "l2_distance": "src/repro/kernels/l2_distance.py:38",
             "topk": "src/repro/kernels/topk.py:45",
-            "lid_estimate": "src/repro/kernels/lid_kernel.py:36"}
+            "lid_estimate": "src/repro/kernels/lid_kernel.py:36",
+            "pq_scan": "src/repro/kernels/pq_scan.py:52",
+            "decode_attention": "src/repro/kernels/decode_attention.py:70"}
 SOURCES = {"beam_step": "beam_step.cu", "l2_distance": "l2_distance.cu",
-           "topk": "topk.cu", "lid_estimate": "lid_kernel.cu"}
+           "topk": "topk.cu", "lid_estimate": "lid_kernel.cu",
+           "pq_scan": "pq_scan.cu", "decode_attention": "decode_attention.cu"}
+# The kernels of the MCGI main path (phase 3); phase 3c adds pq_scan, the
+# LM paths decode_attention.
+MCGI_KERNELS = ("beam_step.exact", "beam_step.pq", "l2_distance", "topk",
+                "lid_estimate")
+ATTN_TOL = 3e-4                          # the reference's kernel tolerance
+PQ_Q, PQ_M, PQ_K = 256, 16, 256          # one adc_topk chunk at N = 1M
+ADC_K = 10
+LM_BATCH, LM_PROMPT, LM_GEN = 8, 128, 32
+# [lm-serve] steps whose layer-0 decode_attention is held to the plain
+# version: the first, the last teacher-forced and the last generated.
+LM_CHECK_STEPS = (0, LM_PROMPT - 1, LM_PROMPT + LM_GEN - 2)
+# Prefill vs decode logits in bfloat16: the CPU tests see 1.2e-2 relative
+# L2 between the two frameworks over 2 layers; 28 layers get the most the
+# check allows.
+PREFILL_REL_L2 = 5e-2
+# (cell, batch, S): decode_32k's batch is cut from 128 (224 GiB of cache).
+LM_CELLS = (("decode_32k", 16, 32768), ("long_500k", 1, 524288))
+LM_CELL_STEPS = 16
 
 
 def sift1m():
@@ -456,6 +509,181 @@ def check_bulk_kernels(dev, seed: int) -> list[dict]:
     return out
 
 
+def qwen2():
+    from repro_torch.configs import qwen2_7b
+
+    return qwen2_7b.CONFIG
+
+
+def attention_bound(lens, s: int, hq: int, hkv: int, d: int,
+                    kv_bytes: int) -> tuple[float, str]:
+    """Least time for one decode_attention launch: K and V up to each row's
+    kv_len (clamped to S) read once, q read and the float32 output written
+    once; 4 flops per (valid position, query head, dim) in float32."""
+    valid = int(lens.clamp(0, s).sum())
+    b = lens.shape[0]
+    nbytes = 2 * valid * hkv * d * kv_bytes + b * hq * d * (kv_bytes + 4)
+    return bound_of(nbytes, 4 * valid * hq * d)
+
+
+def sdpa_time(q, k, v, lens):
+    """Device time of F.scaled_dot_product_attention (GQA, boolean mask) on
+    (B, H, S, d) views of the same tensors, or None where the installed
+    PyTorch refuses the call."""
+    import torch
+    import torch.nn.functional as F
+
+    s = k.shape[1]
+    mask = (torch.arange(s, device=k.device)[None, :]
+            < lens[:, None])[:, None, None, :]
+    q4, k4, v4 = q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2)
+
+    def call():
+        return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask,
+                                              enable_gqa=True)
+    try:
+        call()
+        sync(k.device)
+    except RuntimeError as e:         # the yardstick only, never the port
+        log(f"[phase2] decode_attention library call refused: {e}")
+        return None
+    return time_calls(call, hold=False)[0]
+
+
+def attention_check(where: str, q, k, v, lens, got=None) -> float:
+    """Hold decode_attention's output (launched here unless ``got`` is
+    given) to its plain version on the same tensors within ATTN_TOL, and
+    to zeros at kv_len = 0; returns the max abs error."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    if got is None:
+        got = ops.decode_attention(q, k, v, lens)
+    want = ref.decode_attention_gqa_ref(q, k, v, lens)
+    sync(q.device)
+    if not torch.allclose(got, want, rtol=ATTN_TOL, atol=ATTN_TOL):
+        raise AssertionError(
+            f"decode_attention ({where}): differs from the plain version "
+            f"beyond {ATTN_TOL} (kv_len {lens.tolist()[:4]})")
+    if bool((lens == 0).any()) and not bool((got[lens == 0] == 0).all()):
+        raise AssertionError("decode_attention: kv_len = 0 must give zeros")
+    return float((got - want).abs().max())
+
+
+def check_decode_attention(dev, seed: int) -> dict:
+    """decode_attention at qwen2-7b's heads against its plain version at
+    the lm-serve (B=8, S=160), decode_32k (B=16) and long_500k shapes;
+    timed at kv_len = S - 1, the LM cells' length."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    cfg = qwen2()
+    hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    g = torch.Generator(device=dev).manual_seed(seed + 303)
+    err, timings = 0.0, {}
+    # [lm-serve]'s shape is checked here too (ragged), and timed on no
+    # path: its cache is small.
+    for cell, b, s in (("lm-serve", LM_BATCH, LM_PROMPT + LM_GEN),
+                       ) + LM_CELLS:
+        q = torch.randn((b, hq, d), generator=g, device=dev).bfloat16()
+        k = torch.randn((b, s, hkv, d), generator=g, device=dev).bfloat16()
+        v = torch.randn((b, s, hkv, d), generator=g, device=dev).bfloat16()
+        ragged = torch.randint(1, s + 1, (b,), generator=g, device=dev,
+                               dtype=torch.int32)
+        if b > 2:
+            ragged[:3] = torch.tensor([0, 1, s], device=dev)
+        checks = [ragged] if b > 1 else [ragged, torch.tensor(
+            [s], device=dev, dtype=torch.int32), torch.tensor(
+            [1], device=dev, dtype=torch.int32)]
+        for lens in checks:
+            err = max(err, attention_check(f"phase 2 {cell}", q, k, v, lens))
+        if cell == "lm-serve":
+            log(f"[phase2] decode_attention {cell} B={b} S={s} Hq={hq} "
+                f"Hkv={hkv} d={d} bf16: within {ATTN_TOL} on ragged kv_len "
+                f"{ragged.tolist()}")
+            continue
+        lens = torch.full((b,), s - 1, device=dev, dtype=torch.int32)
+        ms, host = time_calls(lambda: ops.decode_attention(q, k, v, lens),
+                              hold=True)
+        plain_ms, _ = time_calls(
+            lambda: ref.decode_attention_gqa_ref(q, k, v, lens), hold=False)
+        lib_ms = sdpa_time(q, k, v, lens)
+        bound = attention_bound(lens, s, hq, hkv, d, 2)
+        timings[cell] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                             bound_ms=bound[0], bound_by=bound[1])
+        log(f"[phase2] decode_attention {cell} B={b} S={s} Hq={hq} Hkv={hkv} "
+            f"d={d} bf16: within {ATTN_TOL} on ragged kv_len; at kv_len = "
+            f"S-1 kernel {ms:.4f} ms on the device ({host:.4f} ms host), "
+            f"plain {plain_ms:.4f} ms, library "
+            f"{'refused' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
+            f"{bound[0]:.4f} ms ({bound[1]})")
+        del q, k, v
+        torch.cuda.empty_cache()
+    t = timings["decode_32k"]
+    rec = record("decode_attention", err, t["ms"], t["plain_ms"],
+                 t["library_ms"], (t["bound_ms"], t["bound_by"]),
+                 f"bfloat16 cache within {ATTN_TOL} at lm-serve's (8, 160) "
+                 f"ragged, decode_32k (B=16) and long_500k; kv_len = 0 "
+                 f"gives zeros")
+    rec["long_500k"] = timings["long_500k"]
+    return rec
+
+
+def check_pq_scan(dev, seed: int) -> dict:
+    """pq_scan at one adc_topk chunk of phase 3c: (256, 16, 256) LUTs x
+    (1M, 16) codes; bit for bit on integer LUTs, 1e-5 on float LUTs."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+
+    n = sift1m().n
+    g = torch.Generator(device=dev).manual_seed(seed + 404)
+    codes = torch.randint(0, PQ_K, (n, PQ_M), generator=g, device=dev,
+                          dtype=torch.uint8)
+    luts_i = torch.randint(0, 64, (PQ_Q, PQ_M, PQ_K), generator=g,
+                           device=dev).float()
+    luts = torch.rand((PQ_Q, PQ_M, PQ_K), generator=g, device=dev) * 64.0
+    got, want = ops.pq_bulk_scan(luts_i, codes), ref.pq_scan_ref(luts_i, codes)
+    sync(dev)
+    if not torch.equal(got, want):
+        raise AssertionError("pq_scan differs from the plain version on "
+                             "integer LUTs")
+    got, want = ops.pq_bulk_scan(luts, codes), ref.pq_scan_ref(luts, codes)
+    sync(dev)
+    if not torch.allclose(got, want, rtol=FLOAT_RTOL, atol=FLOAT_RTOL):
+        raise AssertionError("pq_scan differs from the plain version beyond "
+                             "1e-5 on float LUTs")
+    err = float((got - want).abs().max())
+    del want
+    # The library yardstick: one embedding_bag over codes offset by m * K
+    # (index prepared outside the timing) gives the (N, Q) transpose.
+    idx = codes.long() + torch.arange(PQ_M, device=dev) * PQ_K
+    weight = luts.reshape(PQ_Q, PQ_M * PQ_K).T.contiguous()
+    lib_out = F.embedding_bag(idx, weight, mode="sum")
+    sync(dev)
+    lib_err = float((lib_out.T - got).abs().max())
+    del lib_out, got
+    ms, host = time_calls(lambda: ops.pq_bulk_scan(luts, codes), hold=True)
+    plain_ms, _ = time_calls(lambda: ref.pq_scan_ref(luts, codes),
+                             hold=False, reps=5)
+    lib_ms, _ = time_calls(lambda: F.embedding_bag(idx, weight, mode="sum"),
+                           hold=False, reps=5)
+    bound = bound_of(n * PQ_M + PQ_Q * PQ_M * PQ_K * 4 + PQ_Q * n * 4,
+                     PQ_Q * n * PQ_M)
+    log(f"[phase2] pq_scan ({PQ_Q}, {PQ_M}, {PQ_K}) x ({n}, {PQ_M}): "
+        f"integer LUTs bit for bit, float LUTs within 1e-5 (max abs err "
+        f"{err:.3g}); kernel {ms:.4f} ms on the device ({host:.4f} ms host), "
+        f"plain {plain_ms:.4f} ms, library (embedding_bag, max abs diff "
+        f"{lib_err:.3g}) {lib_ms:.4f} ms, bound {bound[0]:.4f} ms "
+        f"({bound[1]})")
+    del codes, luts, luts_i, idx, weight
+    return record("pq_scan", err, ms, plain_ms, lib_ms, bound,
+                  "integer LUTs bit for bit; float LUTs within 1e-5")
+
+
 # ---------------------------------------------------------------- phase 3
 
 def serve_run(name, engine, batches, gts, n, pipelined: bool):
@@ -622,8 +850,8 @@ def main_path(dev, n: int, n_queries: int, batch: int, build_batch: int,
         raise AssertionError("tiered serving never launched beam_step[pq]")
     if runs["exact_adaptive"]["launches"]["beam_step.exact"] == 0:
         raise AssertionError("exact serving never launched beam_step[exact]")
-    for name, c in counts.items():
-        if c == 0:
+    for name in MCGI_KERNELS:
+        if counts[name] == 0:
             raise AssertionError(f"{name} was never launched on the main "
                                  f"path")
     rec = runs["tiered_adaptive_pipelined"]["recall"]
@@ -686,6 +914,332 @@ def calibration_path(world) -> dict:
     return counts
 
 
+# --------------------------------------------------------------- phase 3c
+
+def adc_path(world) -> dict:
+    """Bulk ADC retrieval over phase 3's PQ codes: ``adc_topk`` of the
+    query stream in chunks, recall@10 against the exact ground truth, and
+    one retrieval_cand-shaped call.  Returns the launch counts of this
+    run."""
+    import torch
+
+    from repro_torch.core import distance
+    from repro_torch.kernels import ops, ref
+    from repro_torch.pq import adc
+
+    tiered = world["tiered"]
+    codes = tiered.index.codes
+    n = codes.shape[0]
+    luts = tiered.admit(world["qn"])                   # (Q, 16, 256) LUTs
+    sync(luts.device)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    vals, ids = adc.adc_topk(luts, codes, ADC_K)
+    sync(luts.device)
+    secs = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    nq = luts.shape[0]
+    chunks = -(-nq // adc.query_chunk(n))
+    if ids.shape != (nq, ADC_K) or not bool(((ids >= 0) & (ids < n)).all()):
+        raise AssertionError(f"[adc] ids of shape {tuple(ids.shape)} or "
+                             f"outside [0, {n})")
+    if not (bool(torch.isfinite(vals).all())
+            and bool((vals[:, 1:] >= vals[:, :-1]).all())):
+        raise AssertionError("[adc] distances not finite and ascending")
+    for name in ("pq_scan", "topk"):
+        if counts[name] != chunks:
+            raise AssertionError(f"[adc] {name} launched {counts[name]} "
+                                 f"times, not once per chunk ({chunks})")
+    # The path's kernels against their plain versions at its two shapes:
+    # its first chunk (the path's own results, no new launch) and one
+    # retrieval_cand call; values and ids must be identical.
+    chunk = min(adc.query_chunk(n), nq)
+    one = luts[:1].contiguous()
+    for what, lq, (got_v, got_i) in (
+            (f"a chunk of {chunk} queries", luts[:chunk],
+             (vals[:chunk], ids[:chunk])),
+            ("one query", one, adc.adc_topk(one, codes, ADC_K))):
+        want_v, want_i = ref.topk_ref(ref.pq_scan_ref(lq, codes), ADC_K)
+        sync(luts.device)
+        if not (torch.equal(got_v, want_v) and torch.equal(got_i, want_i)):
+            raise AssertionError(f"[adc] pq_scan + topk on {what} differ "
+                                 f"from pq_scan_ref + topk_ref")
+        del want_v, want_i
+    recall = float(distance.recall_at_k(ids.cpu(),
+                                        torch.as_tensor(world["gt"])))
+    log(f"[adc] adc_topk k={ADC_K}: {nq} queries x {n} PQ codes "
+        f"(m={codes.shape[1]}) in {chunks} chunks of "
+        f"{adc.query_chunk(n)}: {secs:.3f}s ({nq / secs:.1f} QPS); values "
+        f"and ids of the first chunk and of a 1-query call identical to "
+        f"pq_scan_ref + topk_ref; "
+        f"recall@10 {recall:.4f} against the exact ground truth "
+        f"(exhaustive ADC, no rerank; tiered serving reranks); launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    ms, host = time_calls(lambda: adc.adc_topk(one, codes, ADC_K), hold=True)
+    log(f"[adc] retrieval_cand shape (1 query x {n} candidates, k={ADC_K}): "
+        f"{ms:.4f} ms on the device per call ({host:.4f} ms host)")
+    del luts, vals, ids
+    return counts
+
+
+# ------------------------------------------------------------- phase 4: LM
+
+def lm_params(dev, seed: int):
+    """qwen2-7b's parameters at full width, drawn in bfloat16 on the card."""
+    import torch
+
+    from repro_torch.models import transformer
+
+    cfg = qwen2()
+    g = torch.Generator(device=dev).manual_seed(seed + 505)
+    t0 = time.perf_counter()
+    params = transformer.init_lm(cfg, g, device=dev)
+    sync(dev)
+    n = cfg.n_params()
+    log(f"[lm] {cfg.name} at full width: {n} parameters in {cfg.dtype} "
+        f"({n * 2 / 1e9:.2f} GB) drawn from --seed in "
+        f"{time.perf_counter() - t0:.1f}s")
+    return params
+
+
+def step_stats(ms: list) -> str:
+    import numpy as np
+
+    return (f"p50 {float(np.percentile(ms, 50)):.3f} ms, p99 "
+            f"{float(np.percentile(ms, 99)):.3f} ms")
+
+
+def step_bound(params, b: int, kv_len: int) -> str:
+    """Least time of one decode step: every weight read once (of the
+    embedding only the B rows looked up) and the K/V cache up to kv_len of
+    every layer, at the HBM rate."""
+    from repro_torch.models import transformer
+
+    cfg = qwen2()
+    weights = sum(t.numel() * t.element_size()
+                  for t in transformer.leaves(params)) - (
+        params["embed"].numel() - b * cfg.d_model) * 2
+    kv = b * kv_len * cfg.n_layers * 2 * cfg.n_kv_heads * cfg.d_head * 2
+    ms = (weights + kv) / HBM_BYTES_PER_S * 1e3
+    return (f"{ms:.3f} ms ({(weights + kv) / 1e9:.1f} GB of weights and "
+            f"cache at {HBM_BYTES_PER_S / 1e12:.2f} TB/s)")
+
+
+def aten_calls(fn) -> int:
+    """Calls into PyTorch's operator library (views included) that one
+    ``fn()`` makes: what the host dispatches for it, independent of the
+    card."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    return Count.n
+
+
+def lm_serve(params, dev, seed: int) -> dict:
+    """[lm-serve]: teacher-force LM_BATCH prompts of LM_PROMPT tokens
+    through ``decode_step``, then generate greedily to LM_GEN tokens a row;
+    check prefill against the decode path, decode_attention's outputs
+    against its plain version, and that a second run generates the same
+    tokens.  Returns the launch counts of the first run and the kernel's
+    max abs error."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+
+    cfg = qwen2()
+    g = torch.Generator(device=dev).manual_seed(seed + 606)
+    prompts = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT), generator=g,
+                            device=dev)
+    max_len = LM_PROMPT + LM_GEN
+    seen, step = {}, [0]
+
+    def spy(q, k, v, kv_len):
+        """ops.decode_attention that keeps layer 0's inputs and output at
+        the steps of LM_CHECK_STEPS (it adds copies, no launch)."""
+        out = real(q, k, v, kv_len)
+        if step[0] in LM_CHECK_STEPS and step[0] not in seen:
+            seen[step[0]] = tuple(x.clone() for x in (q, k, v, kv_len, out))
+        return out
+
+    def generate():
+        cache = transformer.init_cache(cfg, LM_BATCH, max_len, device=dev)
+        step_ms, tokens, last = [], [], None
+        feed = prompts[:, :1]
+        for t in range(LM_PROMPT + LM_GEN - 1):
+            step[0] = t
+            lens = torch.full((LM_BATCH,), t, dtype=torch.int32, device=dev)
+            t0 = time.perf_counter()
+            logits, cache = transformer.decode_step(cfg, params, cache, feed,
+                                                    lens)
+            nxt = logits.argmax(-1)
+            sync(dev)
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            if t == LM_PROMPT - 1:
+                last = logits.float()
+            if t >= LM_PROMPT - 1:
+                tokens.append(nxt)
+            feed = (prompts[:, t + 1:t + 2] if t + 1 < LM_PROMPT
+                    else nxt[:, None])
+        return torch.stack(tokens, 1), last, step_ms
+
+    real = ops.decode_attention
+    ops.decode_attention = spy
+    try:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        toks, last, step_ms = generate()
+        secs = time.perf_counter() - t0
+        counts = ops.launch_counts()
+    finally:
+        ops.decode_attention = real
+    steps = LM_PROMPT + LM_GEN - 1
+    # The kernel's own outputs on this path against the plain version on
+    # the same tensors: layer 0 at a teacher-forced and a generated step.
+    if sorted(seen) != sorted(LM_CHECK_STEPS):
+        raise AssertionError(f"[lm-serve] decode_attention inputs kept at "
+                             f"steps {sorted(seen)}, not {LM_CHECK_STEPS}")
+    attn_err = max(attention_check(f"lm-serve step {t}", *seen[t][:4],
+                                   got=seen[t][4]) for t in LM_CHECK_STEPS)
+    del seen
+    if counts["decode_attention"] != cfg.n_layers * steps:
+        raise AssertionError(f"[lm-serve] decode_attention launched "
+                             f"{counts['decode_attention']} times, not "
+                             f"{cfg.n_layers} per step x {steps} steps")
+    if toks.shape != (LM_BATCH, LM_GEN) or not bool(
+            ((toks >= 0) & (toks < cfg.vocab)).all()):
+        raise AssertionError(f"[lm-serve] generated tokens of shape "
+                             f"{tuple(toks.shape)} or outside the vocabulary")
+    if not bool(torch.isfinite(last).all()):
+        raise AssertionError("[lm-serve] non-finite logits")
+    t0 = time.perf_counter()
+    pre = transformer.prefill(cfg, params, prompts).float()
+    sync(dev)
+    pre_ms = (time.perf_counter() - t0) * 1e3
+    rel = float((pre - last).norm() / last.norm())
+    if not rel <= PREFILL_REL_L2:
+        raise AssertionError(f"[lm-serve] prefill vs decode logits at "
+                             f"position {LM_PROMPT - 1}: relative L2 "
+                             f"{rel:.4g} > {PREFILL_REL_L2}")
+    toks2, _, _ = generate()
+    if not torch.equal(toks, toks2):
+        raise AssertionError("[lm-serve] a second generation gave other "
+                             "tokens")
+    cache = transformer.init_cache(cfg, LM_BATCH, max_len, device=dev)
+    calls = aten_calls(lambda: transformer.decode_step(
+        cfg, params, cache, prompts[:, :1],
+        torch.zeros((LM_BATCH,), dtype=torch.int32, device=dev)))
+    del cache
+    gen_ms = step_ms[LM_PROMPT:]
+    gen_rate = LM_BATCH * len(gen_ms) / (sum(gen_ms) / 1e3)
+    log(f"[lm-serve] {LM_BATCH} prompts x {LM_PROMPT} tokens teacher-forced "
+        f"through decode_step, then {LM_GEN} greedy tokens a row ({steps} "
+        f"steps into a cache of {LM_PROMPT + LM_GEN}) in {secs:.2f}s; step "
+        f"{step_stats(step_ms)} (bound at the full cache "
+        f"{step_bound(params, LM_BATCH, max_len)}); generation "
+        f"{gen_rate:.1f} tokens/s ({step_stats(gen_ms)}); prefill of {LM_BATCH}x{LM_PROMPT} "
+        f"in {pre_ms:.1f} ms, its last logits within relative L2 {rel:.3g} "
+        f"of the decode path's (bound {PREFILL_REL_L2}); the second run "
+        f"generated identical tokens; decode_attention's outputs at layer 0 "
+        f"of steps {LM_CHECK_STEPS} (kv_len {[t + 1 for t in LM_CHECK_STEPS]}) "
+        f"within {attn_err:.3g} of the plain version (bound {ATTN_TOL}); "
+        f"one step makes {calls} aten calls "
+        f"(views included); launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    return counts, attn_err
+
+
+def lm_cell(params, dev, seed: int, cell: str, b: int, s: int) -> dict:
+    """[lm-<cell>]: LM_CELL_STEPS decode steps at kv_len = S - 1 against a
+    cache of random bfloat16 values.  Returns the launch counts of the
+    timed steps."""
+    import torch
+
+    from repro_torch.configs import qwen2_7b
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+
+    cfg = qwen2()
+    full_b = qwen2_7b.SPEC.cell(cell).meta["batch"]
+    if b < full_b:
+        full_kv = full_b * s * cfg.n_layers * 2 * cfg.n_kv_heads * cfg.d_head
+        log(f"[lm-{cell}] batch cut: {full_b} -> {b} (the cell's KV cache, "
+            f"{full_kv * 2 / 2**30:.0f} GiB, fits no card)")
+    g = torch.Generator(device=dev).manual_seed(seed + 707)
+    t0 = time.perf_counter()
+    cache = transformer.init_cache(cfg, b, s, device=dev)
+    for name in ("k", "v"):
+        for i in range(cfg.n_layers):
+            cache[name][i].normal_(generator=g)
+    sync(dev)
+    fill_s = time.perf_counter() - t0
+    lens = torch.full((b,), s - 1, dtype=torch.int32, device=dev)
+    tokens = torch.randint(0, cfg.vocab, (b, 1), generator=g, device=dev)
+    for _ in range(2):                                    # warm-up
+        transformer.decode_step(cfg, params, cache, tokens, lens)
+    sync(dev)
+    ops.reset_launch_counts()
+    step_ms = []
+    for _ in range(LM_CELL_STEPS):
+        t0 = time.perf_counter()
+        logits, cache = transformer.decode_step(cfg, params, cache, tokens,
+                                                lens)
+        sync(dev)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    counts = ops.launch_counts()
+    if counts["decode_attention"] != cfg.n_layers * LM_CELL_STEPS:
+        raise AssertionError(f"[lm-{cell}] decode_attention launched "
+                             f"{counts['decode_attention']} times, not "
+                             f"{cfg.n_layers} per step")
+    if logits.shape != (b, cfg.vocab) or not bool(
+            torch.isfinite(logits).all()):
+        raise AssertionError(f"[lm-{cell}] logits of shape "
+                             f"{tuple(logits.shape)} or not finite")
+    # decode_attention alone on layer 0's cache at the step's shape.
+    q = torch.randn((b, cfg.n_heads, cfg.d_head), generator=g,
+                    device=dev).bfloat16()
+    ms, _ = time_calls(lambda: ops.decode_attention(
+        q, cache["k"][0], cache["v"][0], lens + 1), hold=True)
+    attn_bound = attention_bound(lens + 1, s, cfg.n_heads, cfg.n_kv_heads,
+                                 cfg.d_head, 2)
+    p50 = sorted(step_ms)[len(step_ms) // 2]
+    log(f"[lm-{cell}] B={b} S={s} kv_len=S-1, cache filled in {fill_s:.1f}s; "
+        f"{LM_CELL_STEPS} steps: {step_stats(step_ms)}, "
+        f"{b / (p50 / 1e3):.1f} tokens/s at p50; step bound "
+        f"{step_bound(params, b, s)}; decode_attention "
+        f"{ms:.4f} ms on the device per launch (bound {attn_bound[0]:.4f} "
+        f"ms), {cfg.n_layers} launches a step = "
+        f"{100 * cfg.n_layers * ms / p50:.1f}% of the p50 step; launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    del cache
+    torch.cuda.empty_cache()
+    return counts
+
+
+def lm_paths(dev, seed: int) -> tuple[dict, float]:
+    """Every LM path; returns ({path: launch counts}, decode_attention's max
+    abs error on [lm-serve])."""
+    import torch
+
+    params = lm_params(dev, seed)
+    out = {}
+    out["lm-serve"], attn_err = lm_serve(params, dev, seed)
+    torch.cuda.empty_cache()
+    for cell, b, s in LM_CELLS:
+        out[f"lm-{cell}"] = lm_cell(params, dev, seed, cell, b, s)
+    del params
+    torch.cuda.empty_cache()
+    return out, attn_err
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=1_000_000,
@@ -703,6 +1257,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.kernels import _build, ops
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     card = gpu_name_power()
     log(f"[device] {card}")
@@ -726,16 +1281,35 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     kernels += check_bulk_kernels(dev, args.seed)
     torch.cuda.empty_cache()
+    kernels.append(check_pq_scan(dev, args.seed))
+    torch.cuda.empty_cache()
+    kernels.append(check_decode_attention(dev, args.seed))
+    torch.cuda.empty_cache()
 
-    counts, world = main_path(dev, args.n, N_QUERIES, SERVE_BATCH,
-                              BUILD_BATCH, args.seed)
-    calib_counts = calibration_path(world)
+    paths = {}
+    paths["main"], world = main_path(dev, args.n, N_QUERIES, SERVE_BATCH,
+                                     BUILD_BATCH, args.seed)
+    paths["calibration"] = calibration_path(world)
+    paths["adc"] = adc_path(world)
+    del world
+    torch.cuda.empty_cache()
+    lm_counts, attn_err = lm_paths(dev, args.seed)
+    paths.update(lm_counts)
     for rec in kernels:
-        rec["launches"] = counts[rec["name"]]
-        rec["calibration_launches"] = calib_counts[rec["name"]]
+        if rec["name"] == "decode_attention":
+            rec["max_abs_err"] = max(rec["max_abs_err"], attn_err)
+    # Each kernel's launches are read on the path that runs it.
+    home = {"pq_scan": "adc", "decode_attention": "lm-serve"}
+    for rec in kernels:
+        rec["launches"] = paths[home.get(rec["name"], "main")][rec["name"]]
+        rec["path_launches"] = {p: c[rec["name"]] for p, c in paths.items()}
+        if rec["launches"] == 0:
+            raise AssertionError(f"{rec['name']} was never launched on its "
+                                 f"path")
+    log(f"[done] every phase passed in {time.perf_counter() - t_start:.1f}s "
+        f"(kernel build included)")
     log("kernels: " + json.dumps({r["name"]: {
-        "launches": r["launches"],
-        "calibration_launches": r["calibration_launches"],
+        "launches": r["launches"], "path_launches": r["path_launches"],
         "phase2": r["verdict"]} for r in kernels}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

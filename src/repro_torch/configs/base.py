@@ -1,0 +1,78 @@
+"""Config-system core: architecture specs, shape cells, the registry (the
+port's copy of :mod:`repro.configs.base`).
+
+An architecture registers an :class:`ArchSpec` binding its exact published
+configuration, a reduced same-family smoke configuration and its shape
+cells.  :func:`get` loads only the configs the port has: qwen2-7b.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+# Step kinds a shape cell can lower.
+TRAIN = "train"            # train_step (fwd+bwd+optimizer)
+PREFILL = "prefill"        # LM prefill forward
+DECODE = "decode"          # LM single-token decode vs KV cache
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeCell:
+    name: str
+    kind: str
+    meta: dict[str, Any]
+    note: str = ""
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchSpec:
+    arch_id: str
+    family: str                       # "lm" | "gnn" | "recsys" | "mcgi"
+    config: Any
+    smoke_config: Any
+    shapes: tuple[ShapeCell, ...]
+    source: str = ""                  # provenance tag
+
+    def cell(self, name: str) -> ShapeCell:
+        for c in self.shapes:
+            if c.name == name:
+                return c
+        raise KeyError(f"{self.arch_id} has no shape {name!r}: "
+                       f"{[c.name for c in self.shapes]}")
+
+
+_REGISTRY: dict[str, ArchSpec] = {}
+
+
+def register(spec: ArchSpec) -> ArchSpec:
+    if spec.arch_id in _REGISTRY:
+        raise ValueError(f"{spec.arch_id} is registered already")
+    _REGISTRY[spec.arch_id] = spec
+    return spec
+
+
+def get(arch_id: str) -> ArchSpec:
+    _ensure_loaded()
+    if arch_id not in _REGISTRY:
+        raise KeyError(f"unknown arch {arch_id!r}; known: "
+                       f"{sorted(_REGISTRY)}")
+    return _REGISTRY[arch_id]
+
+
+def _ensure_loaded() -> None:
+    # Importing a config module registers it (once: modules import once).
+    from repro_torch.configs import qwen2_7b  # noqa: F401
+
+
+def lm_shapes() -> tuple[ShapeCell, ...]:
+    """The four LM shape cells shared by the reference's LM archs."""
+    note_500k = ("decode vs 524288-token KV cache is O(S)/step and runs; a "
+                 "500k *prefill* would be quadratic, so full-attention "
+                 "archs skip it.")
+    return (
+        ShapeCell("train_4k", TRAIN, {"seq": 4096, "batch": 256}),
+        ShapeCell("prefill_32k", PREFILL, {"seq": 32768, "batch": 32}),
+        ShapeCell("decode_32k", DECODE, {"seq": 32768, "batch": 128}),
+        ShapeCell("long_500k", DECODE, {"seq": 524288, "batch": 1},
+                  note=note_500k),
+    )

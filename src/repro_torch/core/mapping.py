@@ -11,6 +11,8 @@ import dataclasses
 
 import torch
 
+from repro_torch import resolve_device
+
 ALPHA_MIN = 1.0
 ALPHA_MAX = 1.5
 
@@ -37,9 +39,10 @@ class AlphaMapping:
         return phi(lid, self.mu, self.sigma, self.alpha_min, self.alpha_max)
 
 
-def constant_alpha(n: int, alpha: float, device="cpu") -> torch.Tensor:
+def constant_alpha(n: int, alpha: float, device="cuda") -> torch.Tensor:
     """Static per-node alpha — the DiskANN/Vamana baseline."""
-    return torch.full((n,), alpha, dtype=torch.float32, device=device)
+    return torch.full((n,), alpha, dtype=torch.float32,
+                      device=resolve_device(device))
 
 
 def adaptive_beam_budget(lid: torch.Tensor, lam, l_min, l_max: int,

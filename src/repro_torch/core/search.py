@@ -26,6 +26,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.core import lid as lid_mod
 from repro_torch.core import mapping as mapping_mod
 from repro_torch.kernels import ops
@@ -155,7 +156,7 @@ def _init_state(ctxs: torch.Tensor, entry, eval_dists: DistEval, n: int,
     return beam_ids, beam_d, beam_exp, visited, zeros, zeros.clone()
 
 
-def pack_filter(allowed, n: int, device="cpu") -> torch.Tensor:
+def pack_filter(allowed, n: int, device="cuda") -> torch.Tensor:
     """Pack a boolean *allowed* mask ((n,) or (Q, n)) into (Q, ceil(n/32))
     int32 exclusion words (uint32 bit patterns): bit j of word w set means
     node w*32+j is excluded."""
@@ -169,7 +170,7 @@ def pack_filter(allowed, n: int, device="cpu") -> torch.Tensor:
     bits = padded.reshape(q, nw, 32).astype(np.uint32)
     words = (bits << np.arange(32, dtype=np.uint32)).sum(axis=2,
                                                          dtype=np.uint32)
-    return torch.from_numpy(words.view(np.int32)).to(device)
+    return torch.from_numpy(words.view(np.int32)).to(resolve_device(device))
 
 
 def scrub_excluded(beam_ids, beam_d, excl_words):

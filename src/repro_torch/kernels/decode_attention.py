@@ -1,0 +1,94 @@
+"""Flash-decoding GQA attention as a hand-written CUDA kernel for Hopper.
+
+Replaces ``repro/kernels/decode_attention.py::decode_attention`` (Pallas,
+TPU).  The source is ``repro_torch/csrc/decode_attention.cu``: one block per
+(batch row, KV head, S split) reads its range of the cache once for all G
+query heads of the group, keeps the online softmax in float32, and a second
+launch combines the splits in a fixed order.  The plain version is
+:func:`repro_torch.kernels.ref.decode_attention_gqa_ref`; the device
+dispatch lives in :func:`repro_torch.kernels.ops.decode_attention`.
+
+kv_len = 0 gives zeros, and kv_len > S counts as S (both as the plain
+version does; the TPU kernel would count its zero padding past S as keys).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+
+LIB = _build.Library("decode_attention", "repro_decode_attention",
+                     [ctypes.c_int] * 6 + [ctypes.c_void_p] * 9)
+TILE = 32                     # positions per tile (csrc: kT)
+MAX_GROUP = 16
+MAX_D = 256
+MAX_SPLITS = 1024
+_TARGET_BLOCKS = 4 * 132      # about four blocks per SM of an H100
+
+# Kernel launches since the last reset: one per call that launches the
+# kernel (its combine launch included), nowhere else.
+launches = {"decode_attention": 0}
+
+
+def num_splits(b: int, hkv: int, s: int) -> int:
+    """S splits per (batch row, KV head): enough blocks to fill the card,
+    at least one tile each."""
+    tiles = -(-s // TILE)
+    want = -(-_TARGET_BLOCKS // max(b * hkv, 1))
+    return max(1, min(want, tiles, MAX_SPLITS))
+
+
+def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          kv_len: torch.Tensor) -> torch.Tensor:
+    """q (B, Hq, d); k, v (B, S, Hkv, d) bfloat16; kv_len (B,) integer, all
+    on the card -> (B, Hq, d) float32.  Only a bfloat16 cache, the LM
+    path's, is built for the card; the plain version takes any float type
+    on the CPU."""
+    dev = k.device
+    _build.check_card(dev, "decode_attention")
+    if q.dim() != 3 or k.dim() != 4:
+        raise ValueError(f"decode_attention takes q (B, Hq, d) and k, v "
+                         f"(B, S, Hkv, d), got {tuple(q.shape)} and "
+                         f"{tuple(k.shape)}")
+    b, s, hkv, d = k.shape
+    hq = q.shape[1]
+    if hq % hkv or hq // hkv > MAX_GROUP or d % 8 or d > MAX_D or s < 1:
+        raise ValueError(f"decode_attention supports Hq = G * Hkv with "
+                         f"G <= {MAX_GROUP}, d % 8 == 0, d <= {MAX_D} and "
+                         f"S >= 1; got Hq={hq} Hkv={hkv} d={d} S={s}")
+    if k.dtype != torch.bfloat16:
+        raise ValueError(f"decode_attention takes a bfloat16 cache on the "
+                         f"card, got {k.dtype}")
+    if q.device != dev or kv_len.device != dev:
+        raise ValueError("decode_attention: q, k, v and kv_len must lie on "
+                         "one card")
+    if kv_len.dtype.is_floating_point:
+        raise ValueError("decode_attention: kv_len must be an integer tensor")
+    qf = q.float().contiguous()
+    lens = kv_len.to(torch.int32).contiguous()
+    _build.need(qf, "q", torch.float32, (b, hq, d), dev)
+    _build.need(k, "k", torch.bfloat16, (b, s, hkv, d), dev)
+    _build.need(v, "v", torch.bfloat16, (b, s, hkv, d), dev)
+    _build.need(lens, "kv_len", torch.int32, (b,), dev)
+    if k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError("decode_attention: k and v must start on a 16-byte "
+                         "boundary")
+    out = torch.empty((b, hq, d), dtype=torch.float32, device=dev)
+    if b == 0:
+        return out
+    splits = num_splits(b, hkv, s)
+    part_m = torch.empty((b, hq, splits), dtype=torch.float32, device=dev)
+    part_l = torch.empty_like(part_m)
+    part_acc = torch.empty((b, hq, splits, d), dtype=torch.float32,
+                           device=dev)
+    rc = LIB.fn()(b, hq, hkv, s, d, splits, qf.data_ptr(), k.data_ptr(),
+                  v.data_ptr(), lens.data_ptr(), part_m.data_ptr(),
+                  part_l.data_ptr(), part_acc.data_ptr(), out.data_ptr(),
+                  _build.stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"decode_attention kernel launch failed: CUDA "
+                           f"error {rc}")
+    launches["decode_attention"] += 1
+    return out

@@ -11,13 +11,17 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import beam_step as _beam
+from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import l2_distance as _l2
 from repro_torch.kernels import lid_kernel as _lid
+from repro_torch.kernels import pq_scan as _pq
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import topk as _topk
 
 # Every kernel library of the port (``_build.build_all`` compiles them at once).
-LIBRARIES = (_beam.LIB, _l2.LIB, _topk.LIB, _lid.LIB)
+LIBRARIES = (_beam.LIB, _l2.LIB, _topk.LIB, _lid.LIB, _pq.LIB, _da.LIB)
+# The modules whose ``launches`` dict counts one kernel each.
+_COUNTED = (_l2, _topk, _lid, _pq, _da)
 
 
 def _device(t: torch.Tensor, op: str) -> torch.device:
@@ -50,6 +54,24 @@ def lid_estimate(knn_d2: torch.Tensor) -> torch.Tensor:
     return _ref.lid_ref(knn_d2)
 
 
+def pq_bulk_scan(luts: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """(Q, M, K) float32 LUTs x (N, M) uint8 codes -> (Q, N) ADC distances,
+    summed in m order."""
+    if _device(luts, "pq_bulk_scan").type == "cuda":
+        return _pq.pq_scan_cuda(luts, codes)
+    return _ref.pq_scan_ref(luts, codes)
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     kv_len: torch.Tensor) -> torch.Tensor:
+    """Flash-decoding GQA attention: q (B, Hq, d) against k, v
+    (B, S, Hkv, d) masked at kv_len (B,) -> (B, Hq, d) float32; kv_len = 0
+    gives zeros and kv_len > S counts as S on every device."""
+    if _device(k, "decode_attention").type == "cuda":
+        return _da.decode_attention_cuda(q, k, v, kv_len)
+    return _ref.decode_attention_gqa_ref(q, k, v, kv_len)
+
+
 def beam_step(state, ctxs, adj, table, budgets, hop_limits, *, kind: str,
               active_count: torch.Tensor | None = None):
     """One fused hop of the batched beam walk (state layout as in
@@ -77,16 +99,16 @@ def beam_step(state, ctxs, adj, table, budgets, hop_limits, *, kind: str,
 
 def launch_counts() -> dict[str, int]:
     """Launches of every kernel since the last :func:`reset_launch_counts`:
-    ``beam_step.exact``, ``beam_step.pq``, ``l2_distance``, ``topk`` and
-    ``lid_estimate``."""
+    ``beam_step.exact``, ``beam_step.pq``, ``l2_distance``, ``topk``,
+    ``lid_estimate``, ``pq_scan`` and ``decode_attention``."""
     out = {f"beam_step.{k}": v for k, v in _beam.launches.items()}
-    for mod in (_l2, _topk, _lid):
+    for mod in _COUNTED:
         out.update(mod.launches)
     return out
 
 
 def reset_launch_counts() -> None:
     _beam.reset_launch_counts()
-    for mod in (_l2, _topk, _lid):
+    for mod in _COUNTED:
         for k in mod.launches:
             mod.launches[k] = 0

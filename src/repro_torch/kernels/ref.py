@@ -138,3 +138,67 @@ def beam_step_ref(state, ctxs, adj, table, budgets, hop_limits, *, kind):
             torch.where(active, hops + 1, hops),
             torch.where(active, evals + valid.sum(1, dtype=torch.int32),
                         evals))
+
+
+def pq_scan_ref(luts: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """(Q, M, K) float32 LUTs x (N, M) uint8 codes -> (Q, N) ADC distances
+    sum_m LUT[q, m, code[n, m]], summed in m order (the reference's
+    ``pq_scan_ref`` with the query batch written out).  Codes must lie
+    below K."""
+    q, m, _ = luts.shape
+    c = codes.long()
+    out = torch.zeros((q, codes.shape[0]), dtype=torch.float32,
+                      device=luts.device)
+    for j in range(m):
+        out += luts[:, j, :].float()[:, c[:, j]]
+    return out
+
+
+def decode_attention_gqa_ref(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor,
+                             kv_len: torch.Tensor | None = None
+                             ) -> torch.Tensor:
+    """GQA decode attention without repeating KV across the group:
+    q (B, Hq, d); k, v (B, S, Hkv, d) with Hq = G * Hkv; kv_len (B,) ->
+    (B, Hq, d) float32.
+
+    The grouped einsum of the reference (``decode_attention_gqa_ref``),
+    with its TPU kernel's guard for a row with nothing to attend to: the
+    softmax is taken as exp(logits - m) / max(l, 1e-30) with m = 0 where
+    every position is masked, so kv_len = 0 gives zeros (the reference's
+    oracle gives NaN there).  Positions are ``arange(S)``, so kv_len > S
+    counts as S.
+    """
+    b, hq, d = q.shape
+    hkv = k.shape[2]
+    qg = q.reshape(b, hkv, hq // hkv, d).float()
+    scale = 1.0 / torch.sqrt(torch.tensor(float(d)))
+    logits = torch.einsum("bkgd,bskd->bkgs", qg, k.float()) * scale
+    if kv_len is not None:
+        pos = torch.arange(k.shape[1], device=k.device)
+        mask = pos[None, None, None, :] < kv_len.to(k.device)[:, None, None,
+                                                              None]
+        logits = logits.masked_fill(~mask, -torch.inf)
+    m = logits.amax(-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    p = torch.exp(logits - m)
+    o = torch.einsum("bkgs,bskd->bkgd", p, v.float())
+    o = o / p.sum(-1, keepdim=True).clamp_min(1e-30)
+    return o.reshape(b, hq, d)
+
+
+def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         kv_len: torch.Tensor | None = None) -> torch.Tensor:
+    """Single-token decode attention with one KV head per query head:
+    q (B, H, d); k, v (B, S, H, d); kv_len (B,) -> (B, H, d) float32 (the
+    reference's ``decode_attention_ref``, a softmax over the positions below
+    kv_len)."""
+    scale = 1.0 / torch.sqrt(torch.tensor(float(q.shape[-1])))
+    logits = torch.einsum("bhd,bshd->bhs", q.float(), k.float()) * scale
+    if kv_len is not None:
+        pos = torch.arange(k.shape[1], device=k.device)
+        logits = logits.masked_fill(
+            ~(pos[None, None, :] < kv_len.to(k.device)[:, None, None]),
+            -torch.inf)
+    return torch.einsum("bhs,bshd->bhd", torch.softmax(logits, -1),
+                        v.float())

@@ -1,0 +1,75 @@
+"""Shared neural-net building blocks (port of :mod:`repro.models.layers`).
+
+Parameters are plain dicts of tensors.  Init functions draw from a
+``torch.Generator`` straight into the requested dtype and device, so a
+full-width model is drawn in bfloat16 on the card without a float32 copy
+(``device="meta"`` gives shapes only).  The reference's ``ShardCtx`` /
+``constrain`` (TPU-mesh sharding) have no counterpart on one card.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+Params = dict[str, Any]
+
+
+def dense_init(generator: torch.Generator | None, d_in: int, d_out: int,
+               scale: float | None = None, *, dtype=torch.float32,
+               device="cpu") -> torch.Tensor:
+    scale = (1.0 / d_in) ** 0.5 if scale is None else scale
+    w = torch.randn((d_in, d_out), generator=generator, dtype=dtype,
+                    device=device)
+    return w.mul_(scale)
+
+
+def embed_init(generator: torch.Generator | None, vocab: int, d: int, *,
+               dtype=torch.float32, device="cpu") -> torch.Tensor:
+    w = torch.randn((vocab, d), generator=generator, dtype=dtype,
+                    device=device)
+    return w.mul_(0.02)
+
+
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    """Normalised in float32, cast back to x's dtype, then scaled by gamma
+    in that dtype (the reference's rounding points)."""
+    xf = x.float()
+    var = (xf * xf).mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)).to(x.dtype) * gamma
+
+
+def rope_freqs(d_head: int, theta: float = 10000.0,
+               device=None) -> torch.Tensor:
+    exps = torch.arange(0, d_head, 2, dtype=torch.float32,
+                        device=device) / d_head
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 10000.0) -> torch.Tensor:
+    """x: (..., S, H, d_head); positions broadcastable to (..., S).  The
+    rotation runs in float32 (a bfloat16 x promotes) and is cast back."""
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, x.device)
+    angles = positions[..., None].float() * freqs            # (..., S, d/2)
+    cos = torch.cos(angles)[..., None, :]
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x[..., :d // 2], x[..., d // 2:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def swiglu_init(generator: torch.Generator | None, d: int, f: int, *,
+                dtype=torch.float32, device="cpu") -> Params:
+    kw = dict(dtype=dtype, device=device)
+    return {"w_gate": dense_init(generator, d, f, **kw),
+            "w_up": dense_init(generator, d, f, **kw),
+            "w_down": dense_init(generator, f, d, **kw)}
+
+
+def swiglu(p: Params, x: torch.Tensor) -> torch.Tensor:
+    g = F.silu(x @ p["w_gate"])
+    return (g * (x @ p["w_up"])) @ p["w_down"]

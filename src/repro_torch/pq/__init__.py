@@ -1,3 +1,3 @@
-from repro_torch.pq.adc import adc_distances, build_lut  # noqa: F401
+from repro_torch.pq.adc import adc_distances, adc_topk, build_lut  # noqa: F401
 from repro_torch.pq.codebook import PqCodebook, split_subspaces, train_pq  # noqa: F401
 from repro_torch.pq.encode import pq_encode  # noqa: F401

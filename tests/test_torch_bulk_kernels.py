@@ -218,7 +218,8 @@ def test_estimate_dataset_lid_with_duplicates(jx, integer):
 def test_cpu_tensors_run_plain_versions_and_count_nothing():
     before = ops.launch_counts()
     assert set(before) == {"beam_step.exact", "beam_step.pq", "l2_distance",
-                           "topk", "lid_estimate"}
+                           "topk", "lid_estimate", "pq_scan",
+                           "decode_attention"}
     q, x = torch.rand(5, 8), torch.rand(40, 8)
     assert torch.equal(ops.bulk_l2(q, x), ref.l2_distance_ref(q, x))
     d = torch.rand(5, 40)

@@ -162,8 +162,9 @@ def test_budget_buckets():
 
 def test_pack_filter_words():
     allowed = np.random.default_rng(10).random((4, 100)) < 0.6
+    words = tsearch.pack_filter(allowed, 100, device="cpu")
     np.testing.assert_array_equal(
-        tsearch.pack_filter(allowed, 100).numpy().view(np.uint32),
+        words.numpy().view(np.uint32),
         np.asarray(jsearch.pack_filter(allowed, 100)))
 
 

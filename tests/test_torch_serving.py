@@ -149,7 +149,8 @@ def test_adaptive_phases_bit_identical_integer(world, filtered):
     jl = build_lut(jnp.asarray(qi), ti.codebook.centroids)
     tl = T(np.array(jl))
     jex = jsearch.pack_filter(allowed, N) if filtered else None
-    tex = tsearch.pack_filter(allowed, N) if filtered else None
+    tex = (tsearch.pack_filter(allowed, N, device="cpu") if filtered
+           else None)
     jst, jb, jh, jq = jsearch._probe_pq_jit(ti.codes, ti.graph.adj, jl,
                                             ti.graph.entry, jcfg, excl=jex)
     tst, tb, th, tq = tsearch._probe_pq(pi.codes, pi.graph.adj, tl,
