@@ -12,10 +12,14 @@ Phases, each printed on its own lines; any failure exits non-zero:
    together;
 2. kernel vs plain version, at the main paths' own shapes —
    ``beam_step`` in both kinds at serving shape (Q=1024, L=128, R=64, N=1M;
-   D=128 exact, M=16 x K=256 PQ) for 12 hops: bit-identical to
-   ``beam_step_ref`` on integer-valued tables and contexts, and on float data
-   beam_d within 1e-5 relative with ids and visited words equal in every
-   lane without a near-tie; ``l2_distance`` at the k-NN shape (4096 x 65536
+   D=128 exact, M=16 x K=256 PQ) for 12 hops of one launch each:
+   bit-identical to ``beam_step_ref`` on integer-valued tables and
+   contexts, and on float data beam_d within 1e-5 relative with ids and
+   visited words equal in every lane without a near-tie; the resident walk
+   (``beam_walk``) as one launch of 12 hops and one launch to convergence
+   (hop limits up to 200), each bit-identical to ``beam_step_ref`` hop by
+   hop on integer data, with the lanes it leaves movable counted; its
+   device time per hop beside the one-hop launch's; ``l2_distance`` at the k-NN shape (4096 x 65536
    x 128) float32 within rtol 1e-4 / atol 1e-3, bfloat16 at 1024 x 8192 x
    128 within 2e-2 / 2e-1; ``topk`` on that float32 output at k = 17 and 10
    (and on a row with planted ties, a row with fewer than k finite entries
@@ -79,6 +83,15 @@ Phases, each printed on its own lines; any failure exits non-zero:
    object per the port's contract, and the device line last.
 
 Needs one CUDA card; there is no CPU path.
+
+    python3 chip_smoke.py --trace-first-batch
+
+also records the first batch of the tiered adaptive pipelined run under
+``torch.profiler`` (host and device activity from the call to the first
+result) and writes ``chiprun_out/first_batch_trace.txt`` (operators by
+self host time and by device time, and the device's busy share of the
+batch) with the Chrome trace beside it; that run's timings carry the
+profiler's overhead.
 """
 from __future__ import annotations
 
@@ -95,6 +108,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # NVIDIA H100 SXM data sheet, at the full 700 W power limit.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+BF16_TC_OPS_PER_S = 989e12                # dense, tensor cores
 RECALL_FLOOR = 0.80
 FLOAT_RTOL = 1e-5
 KERNEL_N, KERNEL_Q = 1_000_000, 1024     # phase 2: serving shape
@@ -106,6 +120,8 @@ TIERED_TARGET = 0.80                     # PQ m=16 caps tiered recall ~0.835
 SERVED_RECALL_SLACK = 0.03
 CALIB_SAMPLE = 256
 SLEEP_CYCLES = 100_000_000               # ~50 ms hold of the card (timing)
+WALK_HOPS = 12                           # phase 2: hops of the capped walk
+WALK_HOP_LIMIT = 200                     # phase 2: the walk to convergence
 CSRC = "src/repro_torch/csrc/"
 REPLACES = {"beam_step": "src/repro/kernels/beam_step.py:180",
             "l2_distance": "src/repro/kernels/l2_distance.py:38",
@@ -265,35 +281,48 @@ def time_hop(fn, state0, hold: bool, reps: int = 20,
     return statistics.median(dev_ms), statistics.median(host_ms)
 
 
-def hop_bound(kind, state0, state1, ctxs, adj, table, budgets, hop_limits):
-    """Least time the card could take for the hop from ``state0`` to
-    ``state1``: the larger of the bytes it must move over the HBM rate and
-    the operations it must do over the float32 rate (data-dependent: active
-    lanes and their valid neighbours as this run's data has them)."""
+def walk_bound(kind, states, ctxs, adj, table, budgets, hop_limits):
+    """Least time the card could take for the walk through ``states``
+    (``states[0]`` the state at launch, ``states[h]`` after h hops; one
+    hop: two states): the larger of the bytes it must move over the HBM
+    rate and the operations it must do over the float32 rate.  Bytes: every
+    lane's beam and counters read once, the beams of lanes that moved
+    written once, each moving lane's context (exact query) read once, and
+    per hop the adjacency row and visited words of each active lane and the
+    rows (or codes and LUT entries) of each valid neighbour.  Operations:
+    the distances of the valid neighbours and the sorted-beam merge,
+    L*R + R*(R + log2 L) compares per active lane-hop.  Data-dependent:
+    active lanes and valid neighbours as this run's data has them."""
+    import math
+
     from repro_torch.kernels.ref import lane_active
 
-    q, width = state0[0].shape
+    q, width = states[0][0].shape
     r = adj.shape[1]
-    active = lane_active(state0[0], state0[2], state0[4], budgets, hop_limits)
-    n_act = int(active.sum())
-    n_valid = int((state1[5] - state0[5]).sum())
     row = (table.shape[1] * 4 if kind == "exact"
            else table.shape[1] * (1 + 4))        # codes + LUT entries
     ctx = ctxs.shape[1] * 4 if kind == "exact" else 0
     beam = width * (4 + 4 + 1)
-    lane_io = 4 * 4 + 2 * 4                      # budget, limit, hops, evals
-    nbytes = (q * (beam + lane_io) + n_act * (r * 4 + r * 4 + beam + ctx)
-              + n_valid * (row + 4))
-    ops = n_valid * (table.shape[1] * 3 if kind == "exact"
-                     else table.shape[1]) + n_act * (width + r) ** 2
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+    lane_io = 4 * 4                              # budget, limit, hops, evals
+    moved = int((states[-1][4] != states[0][4]).sum())
+    nbytes = q * (beam + lane_io) + moved * (beam + 8 + ctx)
+    ops = 0
+    merge = width * r + r * (r + math.log2(width))
+    for s0, s1 in zip(states[:-1], states[1:]):
+        n_act = int(lane_active(s0[0], s0[2], s0[4], budgets,
+                                hop_limits).sum())
+        n_valid = int((s1[5] - s0[5]).sum())
+        nbytes += n_act * (r * 4 + r * 4) + n_valid * (row + 4)
+        ops += n_valid * (table.shape[1] * 3 if kind == "exact"
+                          else table.shape[1]) + n_act * merge
+    return bound_of(nbytes, ops)
 
 
 def check_kernel(kind, dev, n, q, width, r, hops: int, seed: int):
-    """Phase 2 for one kind: bit identity on integer data, tolerance on
-    float data, timings and bound.  Returns the kernel's record."""
+    """Phase 2 for one kind: bit identity on integer data (one hop per
+    launch, and the resident walk), tolerance on float data, timings and
+    bounds.  Returns the kernel's record: its ``ms``, ``plain_ms`` and
+    ``bound_ms`` are per hop of the walk, as the main path launches it."""
     import torch
 
     from repro_torch.kernels import ops, ref
@@ -350,37 +379,93 @@ def check_kernel(kind, dev, n, q, width, r, hops: int, seed: int):
         f"{FLOAT_RTOL} (max abs err {max_err:.3g}); {tie_lanes} lane-hops "
         f"differ, each at a near-tie")
 
-    # Timing: one hop of every lane active, from a mid-walk state.
+    # The resident walk, bit for bit on integer data: one launch capped at
+    # WALK_HOPS hops (hop limits that never bind), and one launch to
+    # convergence (hop limits up to WALK_HOP_LIMIT, so lanes freeze both at
+    # their limit and at a closed frontier).
+    g = torch.Generator(device=dev).manual_seed(seed + 3)
     far = torch.full_like(hop_limits, 1 << 20)
+    deep = torch.randint(2, WALK_HOP_LIMIT + 1, (q,), generator=g,
+                         device=dev, dtype=torch.int32)
+    for cap, limits, what in ((WALK_HOPS, far, f"{WALK_HOPS} hops"),
+                              (ops.MAX_HOPS, deep, "to convergence")):
+        want, left = ref.beam_walk_ref(st0, ctxs, adj, table, budgets,
+                                       limits, kind=kind, max_hops=cap)
+        count = torch.zeros((1,), dtype=torch.int32, device=dev)
+        got = ops.beam_walk(clone(st0), ctxs, adj, table, budgets, limits,
+                            kind=kind, max_hops=cap, active_count=count)
+        sync(dev)
+        for name, a, b in zip(("ids", "d", "exp", "visited", "hops",
+                               "evals"), got, want):
+            if not torch.equal(a, b):
+                bad = int((a != b).reshape(a.shape[0], -1).any(1).sum())
+                raise AssertionError(f"beam_walk[{kind}] {what}: {name} "
+                                     f"differs from beam_step_ref hop by "
+                                     f"hop in {bad} lanes (integer data)")
+        if int(count) != int(left.sum()):
+            raise AssertionError(f"beam_walk[{kind}] {what}: counted "
+                                 f"{int(count)} movable lanes, not "
+                                 f"{int(left.sum())}")
+        log(f"[phase2] beam_walk[{kind}] one launch {what}: bit-identical "
+            f"to beam_step_ref hop by hop (integer data; hops per lane "
+            f"{int(want[4].min())}-{int(want[4].max())}, lanes left movable "
+            f"{int(count)})")
+        del want, got
+
+    # Timing from a mid-walk state, every lane active: one hop per launch,
+    # and one launch of WALK_HOPS hops (per hop).
     full = torch.full_like(budgets, width)
     mid = st0
     for _ in range(4):
         mid = ref.beam_step_ref(mid, ctxs, adj, table, full, far, kind=kind)
-    nxt = ref.beam_step_ref(mid, ctxs, adj, table, full, far, kind=kind)
-    def kernel(s):
+    chain = [mid]
+    for _ in range(WALK_HOPS):
+        chain.append(ref.beam_step_ref(chain[-1], ctxs, adj, table, full,
+                                       far, kind=kind))
+    if int((chain[-1][4] - mid[4]).min()) != WALK_HOPS:
+        raise AssertionError("a lane froze inside the timed walk")
+
+    def hop(s):
         return ops.beam_step(s, ctxs, adj, table, full, far, kind=kind)
+
+    def walk(s):
+        return ops.beam_walk(s, ctxs, adj, table, full, far, kind=kind,
+                             max_hops=WALK_HOPS)
 
     def plain(s):
         return ref.beam_step_ref(s, ctxs, adj, table, full, far, kind=kind)
 
     for _ in range(3):                                   # warm-up
-        kernel(clone(mid))
+        hop(clone(mid))
+        walk(clone(mid))
         plain(mid)
-    ms, host_ms = time_hop(kernel, mid, hold=True)
+    ms, host_ms = time_hop(hop, mid, hold=True)
+    walk_ms, walk_host = time_hop(walk, mid, hold=True)
     plain_ms, _ = time_hop(plain, mid, hold=False)
-    bound_ms, bound_by = hop_bound(kind, mid, nxt, ctxs, adj, table, full,
-                                   far)
+    bound = walk_bound(kind, chain[:2], ctxs, adj, table, full, far)
+    wbound = walk_bound(kind, chain, ctxs, adj, table, full, far)
+    per_hop, wbound_hop = walk_ms / WALK_HOPS, wbound[0] / WALK_HOPS
     log(f"[phase2] beam_step[{kind}] one hop, {q} lanes: kernel {ms:.4f} ms "
         f"on the device ({host_ms:.4f} ms of wrapper host time per launch), "
-        f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
-    del st0, st_k, st_p, st, adj_f, table_f
+        f"plain {plain_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]})")
+    log(f"[phase2] beam_walk[{kind}] {WALK_HOPS} hops in one launch, {q} "
+        f"lanes: {walk_ms:.4f} ms on the device = {per_hop:.4f} ms per hop "
+        f"(one-hop launch {ms:.4f}; {walk_host:.4f} ms of host time per "
+        f"launch), bound {wbound[0]:.4f} ms = {wbound_hop:.4f} per hop "
+        f"({wbound[1]})")
+    del st0, st_k, st_p, st, adj_f, table_f, chain
     return {"name": f"beam_step.{kind}", "route": "cuda",
             "source": CSRC + SOURCES["beam_step"],
             "replaces": REPLACES["beam_step"], "launches": None,
             "max_abs_err": max_err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None,
-            "verdict": "bit-identical on integer data; float within rtol 1e-5"}
+            "ms": per_hop, "plain_ms": plain_ms, "bound_ms": wbound_hop,
+            "bound_by": wbound[1], "library_ms": None,
+            "one_hop_launch": {"ms": ms, "host_ms": host_ms,
+                               "bound_ms": bound[0]},
+            "walk": {"hops": WALK_HOPS, "ms": walk_ms, "host_ms": walk_host},
+            "verdict": "bit-identical on integer data (hop by hop, a "
+                       f"{WALK_HOPS}-hop launch, a launch to convergence); "
+                       "float within rtol 1e-5"}
 
 
 def time_calls(fn, hold: bool, reps: int = 20,
@@ -400,8 +485,9 @@ def record(name, max_err, ms, plain_ms, library_ms, bound, verdict) -> dict:
             "library_ms": library_ms, "verdict": verdict}
 
 
-def bound_of(nbytes: float, ops: float) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+def bound_of(nbytes: float, ops: float,
+             ops_per_s: float = FP32_OPS_PER_S) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -518,12 +604,13 @@ def qwen2():
 def attention_bound(lens, s: int, hq: int, hkv: int, d: int,
                     kv_bytes: int) -> tuple[float, str]:
     """Least time for one decode_attention launch: K and V up to each row's
-    kv_len (clamped to S) read once, q read and the float32 output written
-    once; 4 flops per (valid position, query head, dim) in float32."""
+    kv_len (clamped to S) read once, q (float32) read and the float32
+    output written once; 4 flops per (valid position, query head, dim) at
+    the bf16 tensor-core rate, where the kernel runs them."""
     valid = int(lens.clamp(0, s).sum())
     b = lens.shape[0]
-    nbytes = 2 * valid * hkv * d * kv_bytes + b * hq * d * (kv_bytes + 4)
-    return bound_of(nbytes, 4 * valid * hq * d)
+    nbytes = 2 * valid * hkv * d * kv_bytes + b * hq * d * (4 + 4)
+    return bound_of(nbytes, 4 * valid * hq * d, BF16_TC_OPS_PER_S)
 
 
 def sdpa_time(q, k, v, lens):
@@ -686,8 +773,46 @@ def check_pq_scan(dev, seed: int) -> dict:
 
 # ---------------------------------------------------------------- phase 3
 
-def serve_run(name, engine, batches, gts, n, pipelined: bool):
-    """Serve ``batches``; return the printed metrics."""
+def trace_report(prof, wall_ms: float, path: str) -> str:
+    """Write the profile of one batch to ``path`` (+ ``.json``, a Chrome
+    trace); return a one-line summary: wall ms, the device's busy ms (the
+    union of its kernel and copy intervals) and the longest host
+    operators."""
+    events = [e for e in prof.events()
+              if e.device_type.name == "CUDA" and e.time_range.elapsed_us() > 0]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    busy, end, gap = 0.0, float("-inf"), (0.0, 0.0)
+    for a, b in spans:
+        if end > float("-inf") and a - end > gap[0]:
+            gap = (a - end, end - spans[0][0])
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    avg = prof.key_averages()
+    host = sorted(avg, key=lambda e: e.self_cpu_time_total, reverse=True)[:4]
+    with open(path, "w") as f:
+        f.write(f"wall {wall_ms:.3f} ms, device busy {busy / 1e3:.3f} ms "
+                f"({len(events)} device events), longest device gap "
+                f"{gap[0] / 1e3:.3f} ms at {gap[1] / 1e3:.3f} ms after the "
+                f"first device event\n\n")
+        f.write(avg.table(sort_by="self_cpu_time_total", row_limit=30))
+        f.write("\n\nby self device time:\n")
+        for e in sorted(avg, key=lambda e: e.self_device_time_total,
+                        reverse=True)[:20]:
+            f.write(f"{e.self_device_time_total / 1e3:9.3f} ms  "
+                    f"{e.count:5d} calls  {e.key}\n")
+    prof.export_chrome_trace(path[:-4] + ".json")
+    return (f"wall {wall_ms:.1f} ms, device busy {busy / 1e3:.1f} ms, "
+            f"longest device gap {gap[0] / 1e3:.1f} ms at "
+            f"{gap[1] / 1e3:.1f} ms; "
+            "host self ms: " + ", ".join(
+                f"{e.key} {e.self_cpu_time_total / 1e3:.1f}" for e in host))
+
+
+def serve_run(name, engine, batches, gts, n, pipelined: bool,
+              trace: bool = False):
+    """Serve ``batches``; return the printed metrics.  ``trace``: profile
+    the first batch (see :func:`trace_report`)."""
     import numpy as np
     import torch
 
@@ -696,11 +821,25 @@ def serve_run(name, engine, batches, gts, n, pipelined: bool):
 
     before = ops.launch_counts()
     lat, recalls, hops, budgets = [], [], [], []
+    prof = None
+    if trace:
+        from torch.profiler import ProfilerActivity, profile
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+        prof.start()
     t_all = t0 = time.perf_counter()
     results = (engine.search_batches(batches) if pipelined
                else (engine.search(b) for b in batches))
     for bi, res in enumerate(results):
         lat.append((time.perf_counter() - t0) * 1e3)
+        if prof is not None:
+            torch.cuda.synchronize()
+            prof.stop()
+            out = os.path.join(ROOT, "chiprun_out")
+            os.makedirs(out, exist_ok=True)
+            log(f"[trace] {name}, first batch: " + trace_report(
+                prof, lat[0], os.path.join(out, "first_batch_trace.txt")))
+            prof = None
         if res.ids.shape != (batches[bi].shape[0], engine.k):
             raise AssertionError(f"{name}: result shape {res.ids.shape}")
         if not ((res.ids >= -1) & (res.ids < n)).all():
@@ -726,6 +865,7 @@ def serve_run(name, engine, batches, gts, n, pipelined: bool):
              mean_hops=float(np.mean(hops)), launches=launches)
     log(f"[serve] {name}: recall@10={m['recall']:.4f} qps={m['qps']:.1f} "
         f"batch_lat p50={m['p50_ms']:.1f}ms p99={m['p99_ms']:.1f}ms "
+        f"first={lat[0]:.1f}ms "
         f"meanL={m['mean_budget']} hops/query={m['mean_hops']:.2f} "
         f"launches={ {k: v for k, v in launches.items() if v} }")
     return m
@@ -770,9 +910,10 @@ def compare_serving(eng_auto, eng_buckets, batches) -> None:
 
 
 def main_path(dev, n: int, n_queries: int, batch: int, build_batch: int,
-              seed: int):
+              seed: int, trace: bool = False):
     """Build and serve the deployment; returns the launch counts of this
-    run (counts set to 0 at its start) and what the calibration path needs."""
+    run (counts set to 0 at its start) and what the calibration path needs.
+    ``trace``: profile the first batch of the tiered pipelined run."""
     from repro_torch import serving
     from repro_torch.core import build, distance
     from repro_torch.data import REGISTRY, make_dataset
@@ -838,7 +979,8 @@ def main_path(dev, n: int, n_queries: int, batch: int, build_batch: int,
         eng.search(qn[:64])
     runs = {
         "tiered_adaptive_pipelined": serve_run(
-            "tiered adaptive pipelined", eng_t, batches, gts, n, True),
+            "tiered adaptive pipelined", eng_t, batches, gts, n, True,
+            trace=trace),
         "exact_adaptive": serve_run("exact adaptive", eng_e, batches, gts, n,
                                     False),
         "tiered_fixed_beam128": serve_run("tiered fixed beam 128", eng_f,
@@ -1246,6 +1388,9 @@ def main(argv=None) -> int:
                     help="base points of the main path (1M = SIFT1M; "
                          "a smaller N is printed as a cut)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--trace-first-batch", action="store_true",
+                    help="profile the first batch of the tiered adaptive "
+                         "pipelined run into chiprun_out/")
     args = ap.parse_args(argv)
 
     import torch
@@ -1288,7 +1433,8 @@ def main(argv=None) -> int:
 
     paths = {}
     paths["main"], world = main_path(dev, args.n, N_QUERIES, SERVE_BATCH,
-                                     BUILD_BATCH, args.seed)
+                                     BUILD_BATCH, args.seed,
+                                     trace=args.trace_first_batch)
     paths["calibration"] = calibration_path(world)
     paths["adc"] = adc_path(world)
     del world

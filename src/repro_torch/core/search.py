@@ -11,12 +11,13 @@ Two distance regimes:
   * PQ-routed — ADC distances from per-query LUTs steer the walk and the
     final beam is reranked with full-precision vectors.
 
-Every walk runs one hop loop, :func:`run_batch`: one
-:func:`repro_torch.kernels.ops.beam_step` per hop of the whole batch (the
-port of ``repro``'s ``PallasBeamStep.run_batch``).  The wrapper dispatches
-by the tensors' device only — the hand-written CUDA kernel on the card, its
-plain version on the CPU — so the CPU tests drive the same loop the card
-runs.
+Every walk runs through :func:`run_batch`: one
+:func:`repro_torch.kernels.ops.beam_walk` per batch, which walks every lane
+to convergence (the port of ``repro``'s ``PallasBeamStep.run_batch``, whose
+host loop makes one kernel call per hop).  The wrapper dispatches by the
+tensors' device only — one launch of the hand-written CUDA kernel on the
+card, its plain version (``beam_step_ref`` iterated) on the CPU — so the
+CPU tests drive the same call the card runs.
 """
 from __future__ import annotations
 
@@ -30,17 +31,11 @@ from repro_torch import resolve_device
 from repro_torch.core import lid as lid_mod
 from repro_torch.core import mapping as mapping_mod
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import lane_active
 
 INVALID = -1
 
 # eval_dists(ctxs (Q, ...), ids (Q, R) int, valid (Q, R) bool) -> (Q, R).
 DistEval = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
-
-# Hops between two reads of the fused loop's active-lane counter.  Extra hops
-# past convergence are the identity on frozen lanes, so this only trades
-# host synchronisations against idle launches, never results.
-POLL_HOPS = 8
 
 
 @dataclasses.dataclass(frozen=True)
@@ -205,10 +200,10 @@ def run_batch(states, ctxs, adj, eval_dists: DistEval, beam_width: int,
 
     The state is cloned once at entry (the kernel updates it in place, and
     callers such as the engine's partial results keep the input state), then
-    advanced by one :func:`ops.beam_step` per hop.  The step counts the lanes
-    still active after each hop; the loop reads that counter every
-    :data:`POLL_HOPS` hops and stops at zero.  ``eval_dists`` must be one
-    of :func:`_exact_eval` / :func:`_pq_eval`, whose table the step reads.
+    walked by one :func:`ops.beam_walk` with no hop cap.  The walk counts
+    the lanes that could still move at its end; the one read of that
+    counter must give 0.  ``eval_dists`` must be one of
+    :func:`_exact_eval` / :func:`_pq_eval`, whose table the walk reads.
     """
     kind = getattr(eval_dists, "kind", None)
     table = getattr(eval_dists, "table", None)
@@ -219,17 +214,15 @@ def run_batch(states, ctxs, adj, eval_dists: DistEval, beam_width: int,
     q, dev = states[0].shape[0], states[0].device
     b, hl = _lane_vectors(q, beam_width, hop_limits, budgets, dev)
     st = tuple(t.clone() for t in states)
-    if q == 0 or not bool(lane_active(st[0], st[2], st[4], b, hl).any()):
+    if q == 0:
         return st
-    ctxs = ctxs.contiguous()
-    counts = torch.zeros((POLL_HOPS,), dtype=torch.int32, device=dev)
-    while True:
-        counts.zero_()
-        for i in range(POLL_HOPS):
-            st = ops.beam_step(st, ctxs, adj, table, b, hl, kind=kind,
-                               active_count=counts[i:i + 1])
-        if int(counts[-1]) == 0:
-            return st
+    left = torch.zeros((1,), dtype=torch.int32, device=dev)
+    st = ops.beam_walk(st, ctxs.contiguous(), adj, table, b, hl, kind=kind,
+                       max_hops=ops.MAX_HOPS, active_count=left)
+    if int(left) != 0:
+        raise RuntimeError(f"{int(left)} lanes could still move after a walk "
+                           f"to convergence")
+    return st
 
 
 def fixed_search_batch(ctxs, adj, entry, eval_dists: DistEval, n: int,

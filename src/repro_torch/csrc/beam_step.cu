@@ -1,43 +1,62 @@
-// Fused beam-walk hop for NVIDIA Hopper (sm_90a): one launch advances every
-// query lane of a batched graph walk by one hop.
+// Batched beam walk for NVIDIA Hopper (sm_90a): one launch walks every query
+// lane up to `max_hops` hops, each lane until it freezes, with its beam held
+// in shared memory from the first hop to the last.
 //
 // Replaces the TPU kernel repro/kernels/beam_step.py::beam_step (Pallas,
-// `_beam_step_kernel` + `_select_merge`).  Semantics are those of the plain
-// oracle repro_torch/kernels/ref.py::beam_step_ref (a literal port of
-// repro/kernels/ref.py::beam_step_ref): frontier argmin over the unexpanded,
-// valid, in-budget beam slots (ties to the lowest slot), adjacency-row read,
-// visited-bit test, neighbour distances (squared L2 for kind "exact", an ADC
-// sum over the lane's LUT for kind "pq"), visited-bit set, keep-best-L merge
-// equal to a stable argsort, and lane freezing.
+// `_beam_step_kernel` + `_select_merge`), which advances every lane by one
+// hop per call.  Semantics are those of iterating the plain oracle
+// repro_torch/kernels/ref.py::beam_step_ref (a literal port of
+// repro/kernels/ref.py::beam_step_ref): per hop, the frontier argmin over the
+// unexpanded, valid, in-budget beam slots (ties to the lowest slot), the
+// adjacency-row read, the visited-bit test, neighbour distances (squared L2
+// for kind "exact", an ADC sum over the lane's LUT for kind "pq"), the
+// visited-bit set, the keep-best-L merge equal to a stable argsort, and lane
+// freezing (hop limit reached or frontier closed, as ref.py::lane_active).
+// A launch with max_hops = 1 is one hop of the oracle.
 //
-// What bounds it on this card: bytes, and the latency of dependent reads.
-// One lane-hop moves about R*D*4 + R*4 + 3*L*4*2 bytes for "exact" (R rows of
-// D floats gathered, the adjacency row, the beam read and written) and
-// R*M + R*M*4 for "pq" (R codes plus R*M LUT entries); it does about 3*R*D
-// flops, far under the card's float32 rate, and its reads are chains: the
-// frontier decides the adjacency row, which decides the rows to gather.
+// What bounds it on this card: the latency of dependent reads, then bytes.
+// One lane-hop moves about R*D*4 + R*4 + R*4 bytes for "exact" (R rows of D
+// floats gathered, the adjacency row, the visited words) and R*M for "pq"
+// (R code rows; the LUT is read once per launch); it does about 3*R*D
+// flops, far under the card's float32 rate.  Its reads are a chain: the
+// frontier decides the adjacency row, which decides the visited words and
+// the rows to gather.  The first port (one launch per hop) re-read and
+// re-wrote the beam every hop, gathered rows one per warp per round (eight
+// dependent rounds), ranked the L+R candidates in O((L+R)^2), and left the
+// host a launch per hop.
 //
 // What the design does about it:
-//   * one thread block per lane (grid = Q), so Q lanes keep many independent
-//     gather chains in flight across the 132 SMs;
-//   * the state is updated in place: a frozen lane returns before writing
-//     anything, and an active lane writes only its beam, counters and the
-//     visited words it sets.  The TPU kernel emits a fresh copy of the
-//     visited bitset every hop (ceil(N/32)*4 bytes per lane, 125 KB at
-//     N = 1M); here that copy does not exist;
-//   * exact rows are read with one warp per neighbour row and 16-byte loads,
-//     summed with warp shuffles; PQ lookups read the lane's LUT from global
-//     memory (16 KB at M=16, K=256, so it stays in L1/L2);
-//   * the merge ranks the L+R candidates in shared memory:
-//       rank_i = #{j : d_j < d_i} + #{j < i : d_j == d_i},
-//     the position a stable argsort gives entry i, and writes entry i to slot
-//     rank_i when rank_i < L.  O((L+R)^2) compares on shared memory, no
-//     invariant on inf entries needed;
-//   * the block that finished a hop adds one to `active_after` when its lane
-//     can still move, so the host polls one counter every few hops instead of
-//     synchronising on every hop.
-// Persistent blocks, a walk to convergence in one launch, or CUDA graphs are
-// the next steps for speed.
+//   * one thread block per lane (grid = Q; 8 warps for "exact", 4 for
+//     "pq"); lanes are independent (each
+//     lane's visited words belong to its block alone), so a block loops
+//     hops with block barriers only and no grid-wide synchronisation;
+//   * the beam and the candidates live in shared memory, ping-ponged
+//     between two buffers, and are written back once at the end with the
+//     lane's hop and evaluation counts; the lane's context (the exact query
+//     or the PQ LUT, 16 KB at M=16, K=256) is staged once per launch (a
+//     LUT too large to sit beside the candidates is read from global);
+//   * per hop the chain is three global round trips: the adjacency row, the
+//     visited words (read past L1, since this block's own atomics set them
+//     in L2), then the valid neighbour rows: "exact" rows go to shared
+//     memory by `cp.async`, as many at once as fit in 48 KB (all R = 64
+//     rows of D = 128 in one round; D = 960 at R = 96, GIST's shape, in 8
+//     rounds of 12), and are reduced one warp per row; "pq" reads each code
+//     row and sums LUT entries from shared memory, or from global memory
+//     when the LUT does not fit beside the candidates (M * K * 4 bytes);
+//     several rounds and a LUT in global memory are their own template
+//     instantiations, so the common shapes keep their registers;
+//   * the merge: a merged beam is sorted, so from the second hop of a
+//     launch on (and from the first where the beam comes in sorted) a beam
+//     entry's rank is its slot plus the new candidates below it, and a new
+//     candidate's rank a binary search in the beam plus the new candidates
+//     ahead of it: O(L*R + R*(R + log L)) compares.  An unsorted beam (a
+//     scrubbed filter seed) takes the general rank
+//       rank_i = #{j : d_j < d_i} + #{j < i : d_j == d_i}
+//     for its first hop.  Both equal a stable argsort;
+//   * a lane frozen at entry writes nothing; a lane that took hops writes
+//     its beam, counters and the visited bits it set; the block adds one to
+//     `active_after` when its lane could still move, so a walk to
+//     convergence ends with the counter at 0 and the host reads it once.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -46,10 +65,22 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+// Threads of a lane's block: "exact" spreads its 32 KB row gather and the
+// merge over 8 warps, held to 64 registers so that 4 lanes share an SM
+// (left free, the compiler takes enough to fit only 2); "pq" keeps no rows in
+// shared memory, so it runs 4 warps in blocks small enough that 8 lanes
+// share an SM.
+template <int KIND>
+struct Shape {
+  static constexpr int kThreads = KIND == 0 ? 256 : 128;
+  static constexpr int kWarps = kThreads / 32;
+  static constexpr int kMinBlocks = KIND == 0 ? 4 : 8;
+};
+constexpr int kMaxWarps = 8;
 constexpr int kInvalid = -1;
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMaxSmem = 232448 - 1024;   // a block's limit, less static smem
+constexpr size_t kRowBytes = 48 * 1024;   // exact rows gathered per round
 
 struct ArgMin {
   float v;
@@ -72,13 +103,14 @@ __device__ __forceinline__ ArgMin warp_argmin(ArgMin x) {
   return x;
 }
 
+template <int WARPS>
 __device__ ArgMin block_argmin(ArgMin x, ArgMin* scratch) {
   const int warp = threadIdx.x >> 5, wl = threadIdx.x & 31;
   x = warp_argmin(x);
   if (wl == 0) scratch[warp] = x;
   __syncthreads();
   if (warp == 0) {
-    x = wl < kWarps ? scratch[wl] : ArgMin{CUDART_INF_F, INT_MAX};
+    x = wl < WARPS ? scratch[wl] : ArgMin{CUDART_INF_F, INT_MAX};
     x = warp_argmin(x);
     if (wl == 0) scratch[0] = x;
   }
@@ -86,163 +118,328 @@ __device__ ArgMin block_argmin(ArgMin x, ArgMin* scratch) {
   return scratch[0];
 }
 
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(smem)),
+               "l"(gmem));
+}
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(smem)),
+               "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::);
+}
+
+// n floats from global to shared memory by the whole block (16-byte copies
+// when `vec`: both 16-byte aligned and n % 4 == 0); the caller waits.
+__device__ __forceinline__ void stage(float* dst, const float* src, int n, bool vec) {
+  if (vec) {
+    for (int c = threadIdx.x; c < (n >> 2); c += blockDim.x) cp_async16(dst + 4 * c, src + 4 * c);
+  } else {
+    for (int c = threadIdx.x; c < n; c += blockDim.x) cp_async4(dst + c, src + c);
+  }
+}
+
+__host__ __device__ inline size_t pad4(size_t n) { return (n + 3) & ~static_cast<size_t>(3); }
+
+// How a lane's block lays out its shared memory: the context (the exact
+// query, or the PQ LUT when it fits), `rows_cap` exact rows per gather
+// round, and the candidates twice (distance, id, expanded flag).
+struct Plan {
+  size_t smem;
+  int rows_cap;
+  int ctx_smem;
+};
+
+inline bool plan_walk(int kind, int L, int R, int width, int K, Plan* p) {
+  const size_t T = static_cast<size_t>(L) + R;
+  const size_t cand = 2 * T * (sizeof(float) + sizeof(int32_t)) + 2 * T;
+  const size_t row = static_cast<size_t>(width) * sizeof(float);
+  if (kind == 0) {
+    const size_t fit = kRowBytes / row;
+    p->rows_cap = static_cast<int>(fit < 1 ? 1 : (fit > static_cast<size_t>(R) ? R : fit));
+    p->ctx_smem = 1;
+    p->smem = (pad4(width) + pad4(static_cast<size_t>(p->rows_cap) * width)) * sizeof(float) +
+              cand;
+  } else {
+    const size_t lut = pad4(static_cast<size_t>(width) * K) * sizeof(float);
+    p->rows_cap = 0;
+    p->ctx_smem = lut + cand <= static_cast<size_t>(kMaxSmem);
+    p->smem = (p->ctx_smem ? lut : 0) + cand;
+  }
+  return p->smem <= static_cast<size_t>(kMaxSmem);
+}
+
 // KIND 0: exact (table = (N, width) float32, ctxs = (Q, width) float32).
 // KIND 1: pq    (table = (N, width) uint8 codes, ctxs = (Q, width, K) LUTs).
-template <int KIND>
-__global__ void __launch_bounds__(kThreads) beam_step_kernel(
-    int L, int R, int nw, int width, int K, int vec4,
+// SPLIT: exact rows gathered in several rounds of `rows_cap`, or a LUT read
+// from global memory; its own instantiation, so the common shapes (one
+// round, the LUT in shared memory) run the code and registers of their own.
+template <int KIND, bool SPLIT>
+__global__ void __launch_bounds__(Shape<KIND>::kThreads, Shape<KIND>::kMinBlocks)
+beam_walk_kernel(
+    int L, int R, int width, int K, int vec4, int max_hops, int rows_cap,
     int32_t* __restrict__ beam_ids, float* __restrict__ beam_d,
     bool* __restrict__ beam_exp, uint32_t* __restrict__ visited,
     int32_t* __restrict__ hops, int32_t* __restrict__ evals,
     const float* __restrict__ ctxs, const int32_t* __restrict__ adj,
     const void* __restrict__ table, const int32_t* __restrict__ budgets,
-    const int32_t* __restrict__ hop_limits, int32_t* __restrict__ active_after) {
-  extern __shared__ unsigned char smem[];
-  const int T = L + R;
-  float* cat_d = reinterpret_cast<float*>(smem);
-  int32_t* cat_ids = reinterpret_cast<int32_t*>(cat_d + T);
-  unsigned char* cat_exp = reinterpret_cast<unsigned char*>(cat_ids + T);
-  __shared__ ArgMin red[kWarps];
+    const int32_t* __restrict__ hop_limits, int32_t* __restrict__ active_after, int nw) {
+  extern __shared__ float4 smem4[];
+  constexpr int kThreads = Shape<KIND>::kThreads, kWarps = Shape<KIND>::kWarps;
+  __shared__ ArgMin red[kMaxWarps];
   __shared__ int s_nvalid;
+  const int T = L + R;
+  const int ctx_len = KIND == 0 ? width : width * K;
+  float* ctx_s = reinterpret_cast<float*>(smem4);
+  constexpr bool ctx_smem = KIND == 0 || !SPLIT;
+  float* rows_s = ctx_s + (ctx_smem ? pad4(ctx_len) : 0);
+  // Candidate buffer b (0 or 1): distances at cat_d + b*T, ids at
+  // cat_ids + b*T, expanded flags at cat_exp + b*T.
+  float* cat_d = rows_s + (KIND == 0 ? pad4(static_cast<size_t>(rows_cap) * width) : 0);
+  int32_t* cat_ids = reinterpret_cast<int32_t*>(cat_d + 2 * T);
+  unsigned char* cat_exp = reinterpret_cast<unsigned char*>(cat_ids + 2 * T);
 
   const int lane = blockIdx.x;
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, warp = tid >> 5, wl = tid & 31;
   int32_t* ids = beam_ids + static_cast<size_t>(lane) * L;
   float* bd = beam_d + static_cast<size_t>(lane) * L;
   bool* bexp = beam_exp + static_cast<size_t>(lane) * L;
   uint32_t* vis = visited + static_cast<size_t>(lane) * nw;
   const int budget = budgets[lane];
   const int hop_limit = hop_limits[lane];
-  const int h = hops[lane];
+  int h = hops[lane];
+  int ev = evals[lane];
 
-  // 1. Frontier: stage the beam in shared memory, argmin over open slots.
-  ArgMin best{CUDART_INF_F, INT_MAX};
-  int open = 0;
+  // The beam and the lane's context into shared memory, once.
+  const float* ctx_g = ctxs + static_cast<size_t>(lane) * ctx_len;
+  if (ctx_smem) stage(ctx_s, ctx_g, ctx_len, vec4 != 0);
   for (int i = tid; i < L; i += kThreads) {
-    const int id = ids[i];
-    const float d = bd[i];
-    const bool e = bexp[i];
-    cat_ids[i] = id;
-    cat_d[i] = d;
-    cat_exp[i] = e;
-    const bool closed = e || id == kInvalid || i >= budget;
-    open |= !closed;
-    best = better(best, ArgMin{closed ? CUDART_INF_F : d, i});
+    cat_ids[i] = ids[i];
+    cat_d[i] = bd[i];
+    cat_exp[i] = bexp[i];
   }
-  if (tid == 0) s_nvalid = 0;
-  const int frontier_open = __syncthreads_or(open);
-  // Frozen lane (hop limit reached or frontier closed): write nothing.
-  if (!(h < hop_limit && frontier_open)) return;
-  best = block_argmin(best, red);
-  const int u = cat_ids[best.i];
-
-  // 2. Adjacency row and visited test (every read before any bit is set).
-  const int32_t* row = adj + static_cast<size_t>(u < 0 ? 0 : u) * R;
-  for (int r = tid; r < R; r += kThreads) {
-    const int v = row[r];
-    const int safe = v < 0 ? 0 : v;
-    const uint32_t bit = 1u << (safe & 31);
-    const bool seen = (vis[safe >> 5] & bit) != 0u;
-    const bool valid = v != kInvalid && u != kInvalid && !seen;
-    cat_ids[L + r] = valid ? v : kInvalid;
-    cat_d[L + r] = CUDART_INF_F;
-    cat_exp[L + r] = 0;
-  }
+  cp_async_wait_all();
   __syncthreads();
-  if (tid == 0) cat_exp[best.i] = 1;
+  int in_order = 1;
+  for (int i = tid; i + 1 < L; i += kThreads) in_order &= cat_d[i] <= cat_d[i + 1];
+  bool sorted = __syncthreads_and(in_order) != 0;
 
-  // 3. Distances of the valid neighbours; 4. set their visited bits.
-  const int warp = tid >> 5, wl = tid & 31;
-  if (KIND == 0) {
-    const float* q = ctxs + static_cast<size_t>(lane) * width;
+  int p = 0, taken = 0;
+  bool can_move;
+  for (;;) {
+    float* cd = cat_d + p * T;
+    int32_t* ci = cat_ids + p * T;
+    unsigned char* ce = cat_exp + p * T;
+
+    // 1. Frontier: argmin over open slots; freeze test.
+    ArgMin best{CUDART_INF_F, INT_MAX};
+    int open = 0;
+    for (int i = tid; i < L; i += kThreads) {
+      const bool closed = ce[i] || ci[i] == kInvalid || i >= budget;
+      open |= !closed;
+      best = better(best, ArgMin{closed ? CUDART_INF_F : cd[i], i});
+    }
+    if (tid == 0) s_nvalid = 0;
+    can_move = __syncthreads_or(open) != 0 && h < hop_limit;
+    if (!can_move || taken == max_hops) break;
+    best = block_argmin<kWarps>(best, red);
+    const int u = ci[best.i];
+
+    // 2. Adjacency row and visited test (every read before any bit is set).
+    const int32_t* row = adj + static_cast<size_t>(u < 0 ? 0 : u) * R;
+    for (int r = tid; r < R; r += kThreads) {
+      const int v = __ldg(row + r);
+      const int safe = v < 0 ? 0 : v;
+      const uint32_t bit = 1u << (safe & 31);
+      const bool seen = (__ldcg(vis + (safe >> 5)) & bit) != 0u;
+      const bool valid = v != kInvalid && u != kInvalid && !seen;
+      ci[L + r] = valid ? v : kInvalid;
+      cd[L + r] = CUDART_INF_F;
+      ce[L + r] = 0;
+    }
+    __syncthreads();
+    if (tid == 0) ce[best.i] = 1;
+
+    // 3. The valid exact rows in flight by `cp.async` (all at once, or
+    // `rows_cap` a round), the visited bits set while they land (reductions
+    // the block does not wait on), then one warp per row reduces; "pq" sums
+    // LUT entries.
     const float* X = static_cast<const float*>(table);
-    for (int r = warp; r < R; r += kWarps) {
-      const int v = cat_ids[L + r];
-      if (v == kInvalid) continue;
-      const float* xr = X + static_cast<size_t>(v) * width;
-      float acc = 0.f;
-      if (vec4) {
-        const float4* x4 = reinterpret_cast<const float4*>(xr);
-        const float4* q4 = reinterpret_cast<const float4*>(q);
-        for (int c = wl; c < (width >> 2); c += 32) {
-          const float4 a = __ldg(x4 + c), b = __ldg(q4 + c);
-          const float dx = a.x - b.x, dy = a.y - b.y;
-          const float dz = a.z - b.z, dw = a.w - b.w;
-          acc += dx * dx + dy * dy + dz * dz + dw * dw;
+    const int chunks = vec4 ? width >> 2 : width;
+    auto gather = [&](int r0, int rn) {
+      for (int e = tid; e < rn * chunks; e += kThreads) {
+        const int r = e / chunks, c = e - r * chunks;
+        const int v = ci[L + r0 + r];
+        if (v == kInvalid) continue;
+        if (vec4)
+          cp_async16(rows_s + r * width + 4 * c, X + static_cast<size_t>(v) * width + 4 * c);
+        else
+          cp_async4(rows_s + r * width + c, X + static_cast<size_t>(v) * width + c);
+      }
+    };
+    auto reduce = [&](int r0, int rn) {
+      for (int r = warp; r < rn; r += kWarps) {
+        if (ci[L + r0 + r] == kInvalid) continue;
+        const float* xr = rows_s + r * width;
+        float acc = 0.f;
+        if (vec4) {
+          const float4* x4 = reinterpret_cast<const float4*>(xr);
+          const float4* q4 = reinterpret_cast<const float4*>(ctx_s);
+          for (int c = wl; c < (width >> 2); c += 32) {
+            const float4 a = x4[c], b = q4[c];
+            const float dx = a.x - b.x, dy = a.y - b.y;
+            const float dz = a.z - b.z, dw = a.w - b.w;
+            acc += dx * dx + dy * dy + dz * dz + dw * dw;
+          }
+        } else {
+          for (int c = wl; c < width; c += 32) {
+            const float dx = xr[c] - ctx_s[c];
+            acc += dx * dx;
+          }
+        }
+        for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(kFull, acc, off);
+        if (wl == 0) cd[L + r0 + r] = acc;
+      }
+    };
+    if (KIND == 0 && !SPLIT) gather(0, R);
+    int mine = 0;
+    for (int r = tid; r < R; r += kThreads) {
+      const int v = ci[L + r];
+      if (v != kInvalid) {
+        atomicOr(vis + (v >> 5), 1u << (v & 31));
+        ++mine;
+      }
+    }
+    if (mine) atomicAdd(&s_nvalid, mine);
+    if (KIND == 0 && !SPLIT) {
+      cp_async_wait_all();
+      __syncthreads();
+      reduce(0, R);
+    } else if (KIND == 0) {
+      for (int r0 = 0; r0 < R; r0 += rows_cap) {
+        const int rn = min(rows_cap, R - r0);
+        if (r0 > 0) __syncthreads();  // every warp done with the last round
+        gather(r0, rn);
+        cp_async_wait_all();
+        __syncthreads();
+        reduce(r0, rn);
+      }
+    } else {
+      const float* lut = ctx_smem ? ctx_s : ctx_g;
+      const uint8_t* codes = static_cast<const uint8_t*>(table);
+      for (int r = tid; r < R; r += kThreads) {
+        const int v = ci[L + r];
+        if (v == kInvalid) continue;
+        const uint8_t* code = codes + static_cast<size_t>(v) * width;
+        float acc = 0.f;
+#pragma unroll 8
+        for (int m = 0; m < width; ++m) acc += lut[m * K + __ldg(code + m)];
+        cd[L + r] = acc;
+      }
+    }
+    __syncthreads();
+    const int nvalid = s_nvalid;
+
+    // 5. Keep the best L of the L+R candidates, exactly as a stable argsort.
+    float* nd = cat_d + (p ^ 1) * T;
+    int32_t* ni = cat_ids + (p ^ 1) * T;
+    unsigned char* ne = cat_exp + (p ^ 1) * T;
+    for (int i = tid; i < T; i += kThreads) {
+      const float di = cd[i];
+      int rank;
+      if (sorted && i < L) {
+        rank = i;
+        for (int r = 0; r < R; ++r) rank += cd[L + r] < di;
+      } else if (sorted) {
+        int lo = 0, hi = L;                    // beam entries <= di
+        while (lo < hi) {
+          const int mid = (lo + hi) >> 1;
+          if (cd[mid] <= di) lo = mid + 1; else hi = mid;
+        }
+        rank = lo;
+        const int ri = i - L;
+        for (int r = 0; r < R; ++r) {
+          const float dr = cd[L + r];
+          rank += dr < di || (dr == di && r < ri);
         }
       } else {
-        for (int c = wl; c < width; c += 32) {
-          const float dx = __ldg(xr + c) - __ldg(q + c);
-          acc += dx * dx;
+        rank = 0;
+        for (int k = 0; k < T; ++k) {
+          const float dk = cd[k];
+          rank += (dk < di) || (dk == di && k < i);
         }
       }
-      for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(kFull, acc, off);
-      if (wl == 0) cat_d[L + r] = acc;
+      if (rank < L) {
+        ni[rank] = ci[i];
+        nd[rank] = di;
+        ne[rank] = ce[i];
+      }
     }
-  } else {
-    const float* lut = ctxs + static_cast<size_t>(lane) * width * K;
-    const uint8_t* codes = static_cast<const uint8_t*>(table);
-    for (int r = tid; r < R; r += kThreads) {
-      const int v = cat_ids[L + r];
-      if (v == kInvalid) continue;
-      const uint8_t* code = codes + static_cast<size_t>(v) * width;
-      float acc = 0.f;
-      for (int m = 0; m < width; ++m) acc += __ldg(lut + m * K + code[m]);
-      cat_d[L + r] = acc;
-    }
+    __syncthreads();
+    sorted = true;
+    p ^= 1;
+    ++h;
+    ++taken;
+    ev += nvalid;
   }
-  for (int r = tid; r < R; r += kThreads) {
-    const int v = cat_ids[L + r];
-    if (v != kInvalid) {
-      atomicOr(vis + (v >> 5), 1u << (v & 31));
-      atomicAdd(&s_nvalid, 1);
-    }
-  }
-  __syncthreads();
 
-  // 5. Keep the best L of the L+R candidates, exactly as a stable argsort.
-  int open_after = 0;
-  for (int i = tid; i < T; i += kThreads) {
-    const float di = cat_d[i];
-    int rank = 0;
-    for (int k = 0; k < T; ++k) {
-      const float dk = cat_d[k];
-      rank += (dk < di) || (dk == di && k < i);
+  if (taken > 0) {
+    for (int i = tid; i < L; i += kThreads) {
+      ids[i] = cat_ids[p * T + i];
+      bd[i] = cat_d[p * T + i];
+      bexp[i] = cat_exp[p * T + i] != 0;
     }
-    if (rank < L) {
-      const int id = cat_ids[i];
-      const bool e = cat_exp[i] != 0;
-      ids[rank] = id;
-      bd[rank] = di;
-      bexp[rank] = e;
-      open_after |= (!e && id != kInvalid && rank < budget);
+    if (tid == 0) {
+      hops[lane] = h;
+      evals[lane] = ev;
     }
   }
-  const int still_open = __syncthreads_or(open_after);
-  if (tid == 0) {
-    hops[lane] = h + 1;
-    evals[lane] += s_nvalid;
-    if (active_after != nullptr && h + 1 < hop_limit && still_open)
-      atomicAdd(active_after, 1);
-  }
+  if (tid == 0 && active_after != nullptr && can_move) atomicAdd(active_after, 1);
+}
+
+template <int KIND, bool SPLIT>
+cudaError_t launch(int q, int L, int R, int nw, int width, int K, int vec4, int max_hops,
+                   const Plan& pl, int32_t* ids, float* bd, bool* be, uint32_t* vis,
+                   int32_t* hp, int32_t* ev, const float* cx, const int32_t* ad,
+                   const void* table, const int32_t* bu, const int32_t* hl, int32_t* aa,
+                   cudaStream_t s) {
+  cudaError_t e = cudaFuncSetAttribute(beam_walk_kernel<KIND, SPLIT>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(pl.smem));
+  if (e != cudaSuccess) return e;
+  beam_walk_kernel<KIND, SPLIT><<<q, Shape<KIND>::kThreads, pl.smem, s>>>(
+      L, R, width, K, vec4, max_hops, pl.rows_cap, ids, bd, be, vis, hp, ev, cx,
+      ad, table, bu, hl, aa, nw);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// Plain C entry point, loaded with ctypes.  kind 0 = exact, 1 = pq.  Launches
-// on `stream`, allocates nothing, does not synchronise, and returns
-// cudaGetLastError() so the caller can raise on a refused launch.
-extern "C" int repro_beam_step(int kind, int q, int L, int R, int nw, int width,
-                               int K, int vec4, void* beam_ids, void* beam_d,
-                               void* beam_exp, void* visited, void* hops,
-                               void* evals, const void* ctxs, const void* adj,
-                               const void* table, const void* budgets,
-                               const void* hop_limits, void* active_after,
-                               void* stream) {
+// Plain C entry point, loaded with ctypes.  kind 0 = exact, 1 = pq; `vec4`
+// says the rows and context may be copied 16 bytes at a time (exact: width
+// % 4 == 0 with table and ctxs 16-byte aligned; pq: width * K % 4 == 0 with
+// ctxs 16-byte aligned).  Walks each lane at most `max_hops` hops.
+// Launches on `stream`, allocates nothing, does not synchronise, and
+// returns cudaGetLastError() so the caller can raise on a refused launch;
+// returns kTooWide, launching nothing, when the candidates, the exact query
+// and one exact row do not fit in a block's shared memory.
+constexpr int kTooWide = -2;
+extern "C" int repro_beam_walk(int kind, int q, int L, int R, int nw, int width, int K,
+                               int vec4, int max_hops, void* beam_ids, void* beam_d,
+                               void* beam_exp, void* visited, void* hops, void* evals,
+                               const void* ctxs, const void* adj, const void* table,
+                               const void* budgets, const void* hop_limits,
+                               void* active_after, void* stream) {
   if (q <= 0) return 0;
-  const size_t smem = static_cast<size_t>(L + R) * (sizeof(float) + sizeof(int32_t) + 1);
-  if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (L <= 0 || R <= 0 || width <= 0 || max_hops < 0 || (kind == 1 && K <= 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Plan pl;
+  if (!plan_walk(kind, L, R, width, K, &pl)) return kTooWide;
+  auto* s = static_cast<cudaStream_t>(stream);
   auto* ids = static_cast<int32_t*>(beam_ids);
   auto* bd = static_cast<float*>(beam_d);
   auto* be = static_cast<bool*>(beam_exp);
@@ -254,12 +451,12 @@ extern "C" int repro_beam_step(int kind, int q, int L, int R, int nw, int width,
   auto* bu = static_cast<const int32_t*>(budgets);
   auto* hl = static_cast<const int32_t*>(hop_limits);
   auto* aa = static_cast<int32_t*>(active_after);
-  if (kind == 0) {
-    beam_step_kernel<0><<<q, kThreads, smem, s>>>(L, R, nw, width, K, vec4, ids, bd, be, vis,
-                                                  hp, ev, cx, ad, table, bu, hl, aa);
-  } else {
-    beam_step_kernel<1><<<q, kThreads, smem, s>>>(L, R, nw, width, K, 0, ids, bd, be, vis,
-                                                  hp, ev, cx, ad, table, bu, hl, aa);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const bool split = kind == 0 ? pl.rows_cap < R : !pl.ctx_smem;
+#define REPRO_WALK_ARGS \
+  q, L, R, nw, width, K, vec4, max_hops, pl, ids, bd, be, vis, hp, ev, cx, ad, table, bu, hl, aa, s
+  const cudaError_t e =
+      kind == 0 ? (split ? launch<0, true>(REPRO_WALK_ARGS) : launch<0, false>(REPRO_WALK_ARGS))
+                : (split ? launch<1, true>(REPRO_WALK_ARGS) : launch<1, false>(REPRO_WALK_ARGS));
+#undef REPRO_WALK_ARGS
+  return static_cast<int>(e);
 }

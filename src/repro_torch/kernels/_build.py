@@ -38,16 +38,19 @@ def _nvcc() -> str:
 
 class Library:
     """One ``csrc/<name>.cu`` source, its built library and its C entry
-    point ``symbol`` with ctypes ``argtypes`` (returns a CUDA error code)."""
+    point ``symbol`` with ctypes ``argtypes`` (returns a CUDA error code);
+    ``extra`` maps further entry points of the library to their
+    ``argtypes`` (each returns an int)."""
 
-    def __init__(self, name: str, symbol: str, argtypes: list):
+    def __init__(self, name: str, symbol: str, argtypes: list,
+                 extra: dict | None = None):
         self.name = name
         self.src = _CSRC / f"{name}.cu"
         self.symbol = symbol
-        self.argtypes = argtypes
+        self.symbols = {symbol: argtypes, **(extra or {})}
         # nvcc's report (registers, shared memory, spills) from a build here.
         self.build_log = ""
-        self._fn = None
+        self._fns: dict = {}
         self._lock = threading.Lock()
 
     def path(self) -> pathlib.Path:
@@ -84,16 +87,19 @@ class Library:
         self._finish(self._start())
         return self.path()
 
-    def fn(self):
-        """The loaded C entry point (builds the library on first use)."""
+    def fn(self, symbol: str | None = None):
+        """The loaded C entry point ``symbol`` (default: the main one;
+        builds the library on first use)."""
+        symbol = symbol or self.symbol
         with self._lock:
-            if self._fn is None:
+            if not self._fns:
                 lib = ctypes.CDLL(str(self.build()))
-                fn = getattr(lib, self.symbol)
-                fn.argtypes = self.argtypes
-                fn.restype = ctypes.c_int
-                self._fn = fn
-        return self._fn
+                for name, argtypes in self.symbols.items():
+                    f = getattr(lib, name)
+                    f.argtypes = argtypes
+                    f.restype = ctypes.c_int
+                    self._fns[name] = f
+        return self._fns[symbol]
 
 
 def build_all(libs) -> None:

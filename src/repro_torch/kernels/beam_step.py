@@ -1,16 +1,25 @@
-"""The fused beam-walk hop as a hand-written CUDA kernel for Hopper.
+"""The batched beam walk as a hand-written CUDA kernel for Hopper.
 
-Replaces ``repro/kernels/beam_step.py::beam_step`` (Pallas, TPU).  The source
-is ``repro_torch/csrc/beam_step.cu``; it says what bounds the kernel on the
-card and how its design answers that.  :mod:`repro_torch.kernels._build`
-compiles it for ``sm_90a`` at first use and loads its plain C interface
-with ``ctypes``.
+Replaces ``repro/kernels/beam_step.py::beam_step`` (Pallas, TPU), which
+advances every lane by one hop per call.  The source is
+``repro_torch/csrc/beam_step.cu``; it says what bounds the kernel on the
+card and how its design answers that: one block per lane keeps the lane's
+beam in shared memory and walks up to ``max_hops`` hops in one launch, each
+lane until it freezes.  :mod:`repro_torch.kernels._build` compiles it for
+``sm_90a`` at first use and loads its plain C interface with ``ctypes``.
 
-:func:`beam_step_cuda` updates the walk state **in place**: every state
+:func:`beam_walk_cuda` updates the walk state **in place**: every state
 tensor must be contiguous and on the card, and after the call holds the
-post-hop state (frozen lanes untouched).  The plain version is
-:func:`repro_torch.kernels.ref.beam_step_ref`; the device dispatch lives in
-:func:`repro_torch.kernels.ops.beam_step`.
+state after the walk (lanes frozen at entry untouched).
+``ops.beam_step`` is the same kernel at ``max_hops = 1``.  Rows of any
+width walk: "exact" gathers its neighbour rows in rounds of at most 48 KB,
+and "pq" reads a LUT too large for shared memory from global memory.  The
+one limit is that the two candidate buffers, the exact query and one exact
+row fit in a block's shared memory (about 28,000 floats a row at small
+L + R); past it the C entry point launches nothing and the wrapper raises
+``ValueError``.  The plain
+version is :func:`repro_torch.kernels.ref.beam_step_ref`, iterated; the
+device dispatch lives in :func:`repro_torch.kernels.ops`.
 """
 from __future__ import annotations
 
@@ -21,10 +30,13 @@ import torch
 from repro_torch.kernels import _build
 
 _KINDS = {"exact": 0, "pq": 1}
-_MAX_CANDIDATES = 5000        # L + R: the merge's shared memory stays < 48 KB
+# L + R: the two candidate buffers (9 bytes a candidate each) stay < 96 KB.
+_MAX_CANDIDATES = 5000
+MAX_HOPS = 2**31 - 1          # a hop cap that never binds: walk to the end
+_TOO_WIDE = -2                # csrc: kTooWide, nothing launched
 
-LIB = _build.Library("beam_step", "repro_beam_step",
-                     [ctypes.c_int] * 8 + [ctypes.c_void_p] * 13)
+LIB = _build.Library("beam_step", "repro_beam_walk",
+                     [ctypes.c_int] * 9 + [ctypes.c_void_p] * 13)
 
 # Kernel launches since the last reset, per kind: one per launch, nowhere else.
 launches = {"exact": 0, "pq": 0}
@@ -35,17 +47,21 @@ def reset_launch_counts() -> None:
         launches[k] = 0
 
 
-def beam_step_cuda(state, ctxs, adj, table, budgets, hop_limits, *, kind,
-                   active_count: torch.Tensor | None = None):
-    """Advance every lane of ``state`` by one hop on the card, in place.
+def beam_walk_cuda(state, ctxs, adj, table, budgets, hop_limits, *, kind,
+                   max_hops: int, active_count: torch.Tensor | None = None):
+    """Walk every lane of ``state`` on the card, in place, until it freezes
+    or has taken ``max_hops`` hops in this call.
 
     Shapes and dtypes as :func:`repro_torch.kernels.ref.beam_step_ref`;
     ``budgets``/``hop_limits`` are (Q,) int32 (or broadcastable scalars).
     ``active_count`` (one int32 on the card, optional) gains one for every
-    lane that can still move after this hop.  Returns ``state``.
+    lane that can still move after the walk.  Returns ``state``.
     """
     if kind not in _KINDS:
         raise ValueError(f"unknown beam_step kind {kind!r}")
+    if not 0 <= max_hops <= MAX_HOPS:
+        raise ValueError(f"max_hops must lie in [0, {MAX_HOPS}], got "
+                         f"{max_hops}")
     beam_ids, beam_d, beam_exp, visited, hops, evals = state
     dev = beam_ids.device
     _build.check_card(dev, "beam_step")
@@ -67,27 +83,35 @@ def beam_step_cuda(state, ctxs, adj, table, budgets, hop_limits, *, kind,
     budgets = budgets.expand(q).contiguous()
     hop_limits = torch.as_tensor(hop_limits, dtype=torch.int32, device=dev)
     hop_limits = hop_limits.expand(q).contiguous()
+    dim = table.shape[1]
     if kind == "exact":
-        dim, k = table.shape[1], 0
+        k = 0
         _build.need(table, "table", torch.float32, (n, dim), dev)
         _build.need(ctxs, "ctxs", torch.float32, (q, dim), dev)
+        vec4 = int(dim % 4 == 0 and table.data_ptr() % 16 == 0
+                   and ctxs.data_ptr() % 16 == 0)
     else:
-        dim, k = table.shape[1], ctxs.shape[-1]
+        k = ctxs.shape[-1]
         _build.need(table, "table", torch.uint8, (n, dim), dev)
         _build.need(ctxs, "ctxs", torch.float32, (q, dim, k), dev)
-    vec4 = int(dim % 4 == 0 and table.data_ptr() % 16 == 0
-               and ctxs.data_ptr() % 16 == 0)
+        vec4 = int(dim * k % 4 == 0 and ctxs.data_ptr() % 16 == 0)
     if active_count is not None:
         _build.need(active_count, "active_count", torch.int32, (1,), dev)
     fn = LIB.fn()
-    rc = fn(_KINDS[kind], q, width, r, nw, dim, k, vec4,
+    rc = fn(_KINDS[kind], q, width, r, nw, dim, k, vec4, max_hops,
             beam_ids.data_ptr(), beam_d.data_ptr(), beam_exp.data_ptr(),
             visited.data_ptr(), hops.data_ptr(), evals.data_ptr(),
             ctxs.data_ptr(), adj.data_ptr(), table.data_ptr(),
             budgets.data_ptr(), hop_limits.data_ptr(),
             active_count.data_ptr() if active_count is not None else None,
             _build.stream(dev))
+    if rc == _TOO_WIDE:
+        raise ValueError(f"beam_step[{kind}]: the two candidate buffers "
+                         f"(L + R = {width + r}), the query and one row of "
+                         f"width {dim} do not fit in a block's shared "
+                         f"memory")
     if rc != 0:
         raise RuntimeError(f"beam_step kernel launch failed: CUDA error {rc}")
     launches[kind] += 1
     return state
+

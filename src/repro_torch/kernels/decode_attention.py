@@ -1,10 +1,14 @@
 """Flash-decoding GQA attention as a hand-written CUDA kernel for Hopper.
 
 Replaces ``repro/kernels/decode_attention.py::decode_attention`` (Pallas,
-TPU).  The source is ``repro_torch/csrc/decode_attention.cu``: one block per
-(batch row, KV head, S split) reads its range of the cache once for all G
-query heads of the group, keeps the online softmax in float32, and a second
-launch combines the splits in a fixed order.  The plain version is
+TPU).  The source is ``repro_torch/csrc/decode_attention.cu``: one block of
+4 warps per (batch row, KV head, S split); each warp streams its own
+16-position tiles through a 3-stage ``cp.async`` ring and computes QK^T and
+PV on the tensor cores (bf16 ``mma.sync`` with q and P split into hi + lo
+halves, float32 accumulation), the warps combine once at the end, and a
+second launch combines the splits in a fixed order.  Any head dim
+d % 8 == 0 up to 256 runs; the library picks the split count
+(:func:`num_splits`).  The plain version is
 :func:`repro_torch.kernels.ref.decode_attention_gqa_ref`; the device
 dispatch lives in :func:`repro_torch.kernels.ops.decode_attention`.
 
@@ -20,24 +24,26 @@ import torch
 from repro_torch.kernels import _build
 
 LIB = _build.Library("decode_attention", "repro_decode_attention",
-                     [ctypes.c_int] * 6 + [ctypes.c_void_p] * 9)
-TILE = 32                     # positions per tile (csrc: kT)
-MAX_GROUP = 16
-MAX_D = 256
-MAX_SPLITS = 1024
-_TARGET_BLOCKS = 4 * 132      # about four blocks per SM of an H100
+                     [ctypes.c_int] * 6 + [ctypes.c_void_p] * 9,
+                     extra={"repro_decode_attention_splits": [ctypes.c_int] * 4})
+MAX_GROUP = 16                # query heads per KV head: the mma's 16 rows
+MAX_HEAD_DIM = 256            # any d % 8 == 0 up to this
 
 # Kernel launches since the last reset: one per call that launches the
 # kernel (its combine launch included), nowhere else.
 launches = {"decode_attention": 0}
 
 
-def num_splits(b: int, hkv: int, s: int) -> int:
-    """S splits per (batch row, KV head): enough blocks to fill the card,
-    at least one tile each."""
-    tiles = -(-s // TILE)
-    want = -(-_TARGET_BLOCKS // max(b * hkv, 1))
-    return max(1, min(want, tiles, MAX_SPLITS))
+def num_splits(b: int, hkv: int, s: int, d: int) -> int:
+    """S splits per (batch row, KV head) on the current card: the kernel's
+    library chooses them from the occupancy of its split block, as many as
+    fill the card's resident block slots in one wave, at least one
+    16-position tile each."""
+    sp = LIB.fn("repro_decode_attention_splits")(b, hkv, s, d)
+    if sp < 1:
+        raise RuntimeError(f"decode_attention split query failed: CUDA "
+                           f"error {-sp}")
+    return sp
 
 
 def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -54,10 +60,11 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{tuple(k.shape)}")
     b, s, hkv, d = k.shape
     hq = q.shape[1]
-    if hq % hkv or hq // hkv > MAX_GROUP or d % 8 or d > MAX_D or s < 1:
+    if (hq % hkv or hq // hkv > MAX_GROUP or d % 8 or not 8 <= d <= MAX_HEAD_DIM
+            or s < 1):
         raise ValueError(f"decode_attention supports Hq = G * Hkv with "
-                         f"G <= {MAX_GROUP}, d % 8 == 0, d <= {MAX_D} and "
-                         f"S >= 1; got Hq={hq} Hkv={hkv} d={d} S={s}")
+                         f"G <= {MAX_GROUP}, d % 8 == 0 up to {MAX_HEAD_DIM} "
+                         f"and S >= 1; got Hq={hq} Hkv={hkv} d={d} S={s}")
     if k.dtype != torch.bfloat16:
         raise ValueError(f"decode_attention takes a bfloat16 cache on the "
                          f"card, got {k.dtype}")
@@ -78,7 +85,7 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty((b, hq, d), dtype=torch.float32, device=dev)
     if b == 0:
         return out
-    splits = num_splits(b, hkv, s)
+    splits = num_splits(b, hkv, s, d)
     part_m = torch.empty((b, hq, splits), dtype=torch.float32, device=dev)
     part_l = torch.empty_like(part_m)
     part_acc = torch.empty((b, hq, splits, d), dtype=torch.float32,

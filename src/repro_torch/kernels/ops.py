@@ -18,6 +18,8 @@ from repro_torch.kernels import pq_scan as _pq
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import topk as _topk
 
+# A walk's hop cap that never binds (the walk runs to convergence).
+MAX_HOPS = _beam.MAX_HOPS
 # Every kernel library of the port (``_build.build_all`` compiles them at once).
 LIBRARIES = (_beam.LIB, _l2.LIB, _topk.LIB, _lid.LIB, _pq.LIB, _da.LIB)
 # The modules whose ``launches`` dict counts one kernel each.
@@ -75,25 +77,35 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def beam_step(state, ctxs, adj, table, budgets, hop_limits, *, kind: str,
               active_count: torch.Tensor | None = None):
     """One fused hop of the batched beam walk (state layout as in
-    :func:`repro_torch.kernels.ref.beam_step_ref`).
+    :func:`repro_torch.kernels.ref.beam_step_ref`): :func:`beam_walk` at
+    ``max_hops = 1``."""
+    return beam_walk(state, ctxs, adj, table, budgets, hop_limits, kind=kind,
+                     max_hops=1, active_count=active_count)
 
-    On the card the state is updated in place and returned; on the CPU a
-    new state is returned.  Callers use the return value either way.
-    ``active_count`` (one int32, optional) gains one for each lane that can
-    still move after the hop — the counter the hop loop polls.
+
+def beam_walk(state, ctxs, adj, table, budgets, hop_limits, *, kind: str,
+              max_hops: int, active_count: torch.Tensor | None = None):
+    """Walk every lane until it freezes (hop limit reached or frontier
+    closed) or ``max_hops`` hops are taken in this call (``MAX_HOPS``: no
+    cap); one kernel launch on the card.
+
+    On the card the state is updated in place and returned; on the CPU
+    :func:`repro_torch.kernels.ref.beam_walk_ref` returns a new state.
+    Callers use the return value either way.  ``active_count`` (one int32,
+    optional) gains one for each lane that can still move after the walk.
     """
     dev = state[0].device
     if dev.type == "cuda":
-        return _beam.beam_step_cuda(state, ctxs, adj, table, budgets,
-                                    hop_limits, kind=kind,
+        return _beam.beam_walk_cuda(state, ctxs, adj, table, budgets,
+                                    hop_limits, kind=kind, max_hops=max_hops,
                                     active_count=active_count)
     if dev.type != "cpu":
         raise ValueError(f"beam_step has no implementation for device {dev}")
-    out = _ref.beam_step_ref(state, ctxs, adj, table, budgets, hop_limits,
-                             kind=kind)
+    out, active = _ref.beam_walk_ref(state, ctxs, adj, table, budgets,
+                                     hop_limits, kind=kind,
+                                     max_hops=max_hops)
     if active_count is not None:
-        active_count += _ref.lane_active(out[0], out[2], out[4], budgets,
-                                         hop_limits).sum(dtype=torch.int32)
+        active_count += active.sum(dtype=torch.int32)
     return out
 
 

@@ -140,6 +140,23 @@ def beam_step_ref(state, ctxs, adj, table, budgets, hop_limits, *, kind):
                         evals))
 
 
+def beam_walk_ref(state, ctxs, adj, table, budgets, hop_limits, *, kind,
+                  max_hops: int):
+    """``beam_step_ref`` iterated until no lane can move or ``max_hops``
+    hops are taken (plain version of the walk kernel).  Returns
+    ``(state, active)``: the state after the walk and the (Q,) bool lanes
+    that can still move."""
+    active = lane_active(state[0], state[2], state[4], budgets, hop_limits)
+    for _ in range(max_hops):
+        if not bool(active.any()):
+            break
+        state = beam_step_ref(state, ctxs, adj, table, budgets, hop_limits,
+                              kind=kind)
+        active = lane_active(state[0], state[2], state[4], budgets,
+                             hop_limits)
+    return state, active
+
+
 def pq_scan_ref(luts: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     """(Q, M, K) float32 LUTs x (N, M) uint8 codes -> (Q, N) ADC distances
     sum_m LUT[q, m, code[n, m]], summed in m order (the reference's

@@ -32,8 +32,8 @@ class GqaConfig:
 
 
 def gqa_init(generator: torch.Generator | None, cfg: GqaConfig, *,
-             dtype=torch.float32, device="cpu") -> Params:
-    kw = dict(dtype=dtype, device=device)
+             dtype=torch.float32, device="cuda") -> Params:
+    kw = dict(dtype=dtype, device=layers.init_device(device))
     hq, hkv = cfg.n_heads * cfg.d_head, cfg.n_kv_heads * cfg.d_head
     p = {"wq": dense_init(generator, cfg.d_model, hq, **kw),
          "wk": dense_init(generator, cfg.d_model, hkv, **kw),
@@ -73,10 +73,11 @@ def gqa_train(p: Params, cfg: GqaConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 def gqa_init_cache(cfg: GqaConfig, batch: int, max_len: int,
-                   dtype=torch.bfloat16, device="cpu") -> Params:
+                   dtype=torch.bfloat16, device="cuda") -> Params:
     shape = (batch, max_len, cfg.n_kv_heads, cfg.d_head)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    dev = layers.init_device(device)
+    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev)}
 
 
 def write_at(buf: torch.Tensor, new: torch.Tensor,

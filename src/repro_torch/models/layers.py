@@ -2,7 +2,9 @@
 
 Parameters are plain dicts of tensors.  Init functions draw from a
 ``torch.Generator`` straight into the requested dtype and device, so a
-full-width model is drawn in bfloat16 on the card without a float32 copy
+full-width model is drawn in bfloat16 on the card without a float32 copy.
+Like every entry point of the port they default to the card and raise
+without one unless the caller asks for ``device="cpu"``
 (``device="meta"`` gives shapes only).  The reference's ``ShardCtx`` /
 ``constrain`` (TPU-mesh sharding) have no counterpart on one card.
 """
@@ -13,22 +15,31 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from repro_torch import resolve_device
+
 Params = dict[str, Any]
+
+
+def init_device(device) -> torch.device:
+    """The device parameters are drawn on: the card, the CPU when asked,
+    or ``"meta"`` for shapes only; raises for a missing card."""
+    dev = torch.device(device)
+    return dev if dev.type == "meta" else resolve_device(dev)
 
 
 def dense_init(generator: torch.Generator | None, d_in: int, d_out: int,
                scale: float | None = None, *, dtype=torch.float32,
-               device="cpu") -> torch.Tensor:
+               device="cuda") -> torch.Tensor:
     scale = (1.0 / d_in) ** 0.5 if scale is None else scale
     w = torch.randn((d_in, d_out), generator=generator, dtype=dtype,
-                    device=device)
+                    device=init_device(device))
     return w.mul_(scale)
 
 
 def embed_init(generator: torch.Generator | None, vocab: int, d: int, *,
-               dtype=torch.float32, device="cpu") -> torch.Tensor:
+               dtype=torch.float32, device="cuda") -> torch.Tensor:
     w = torch.randn((vocab, d), generator=generator, dtype=dtype,
-                    device=device)
+                    device=init_device(device))
     return w.mul_(0.02)
 
 
@@ -63,8 +74,8 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 def swiglu_init(generator: torch.Generator | None, d: int, f: int, *,
-                dtype=torch.float32, device="cpu") -> Params:
-    kw = dict(dtype=dtype, device=device)
+                dtype=torch.float32, device="cuda") -> Params:
+    kw = dict(dtype=dtype, device=init_device(device))
     return {"w_gate": dense_init(generator, d, f, **kw),
             "w_up": dense_init(generator, d, f, **kw),
             "w_down": dense_init(generator, f, d, **kw)}

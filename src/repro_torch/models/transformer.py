@@ -26,7 +26,6 @@ from typing import Any
 
 import torch
 
-from repro_torch import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers
 
@@ -91,11 +90,6 @@ def _cast(tree, dtype):
     return tree.to(dtype)
 
 
-def _device(device) -> torch.device:
-    dev = torch.device(device)
-    return dev if dev.type == "meta" else resolve_device(dev)
-
-
 def init_lm(cfg: TransformerConfig, generator: torch.Generator | None,
             device="cuda", dtype: torch.dtype | None = None) -> Params:
     """Draw the model's parameters from ``generator`` in ``dtype``
@@ -104,7 +98,7 @@ def init_lm(cfg: TransformerConfig, generator: torch.Generator | None,
     1/sqrt(d_in), embedding and head by 0.02, unit norms, zero biases),
     not its random bits."""
     _check_dense(cfg)
-    dev = _device(device)
+    dev = layers.init_device(device)
     kw = dict(dtype=cfg.dtype if dtype is None else dtype, device=dev)
     p: Params = {"embed": layers.embed_init(generator, cfg.vocab,
                                             cfg.d_model, **kw)}
@@ -151,7 +145,7 @@ def init_cache(cfg: TransformerConfig, batch: int, max_len: int,
     """Per-layer KV cache stacked on a leading layer axis:
     {"k", "v"} of (n_layers, B, max_len, Hkv, d_head), zeros."""
     _check_dense(cfg)
-    dev = _device(device)
+    dev = layers.init_device(device)
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.d_head)
     return {"k": torch.zeros(shape, dtype=dtype, device=dev),
             "v": torch.zeros(shape, dtype=dtype, device=dev)}

@@ -13,8 +13,10 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from repro.core import search as jsearch  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.beam_step import beam_step as pallas_beam_step  # noqa: E402
+from repro_torch.core import search as tsearch  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 
@@ -124,8 +126,8 @@ def test_beam_step_respects_budget():
 
 @pytest.mark.parametrize("kind", ["exact", "pq"])
 def test_active_counter_counts_movable_lanes(kind):
-    """The counter the hop loop polls gains exactly the lanes that can still
-    take a hop after the step."""
+    """The counter a walk leaves for ``run_batch`` to read gains exactly the
+    lanes that can still take a hop after the step (a one-hop walk)."""
     st, ctxs, adj, table, budgets, hop_limits = _walk_problem(
         kind, 200, 8, 16, 5, seed=3)
     st_t = _to_torch(st)
@@ -138,3 +140,35 @@ def test_active_counter_counts_movable_lanes(kind):
         want = tref.lane_active(st_t[0], st_t[2], st_t[4], args[3], args[4])
         assert int(count) == int(want.sum())
     assert int(count) == 0
+
+
+@pytest.mark.parametrize("kind", ["exact", "pq"])
+def test_run_batch_equals_reference_run_batch(kind):
+    """The port's ``run_batch`` (one ``ops.beam_walk`` to convergence)
+    equals the reference's pieces bit for bit: its vmapped per-lane
+    ``while_loop`` over the hop body (``BeamStepKernel``) and its fused
+    hop loop (``PallasBeamStep``, the Pallas kernel in interpret mode), with
+    per-lane budgets and hop limits from 1 hop to past convergence."""
+    st, ctxs, adj, table, budgets, _ = _walk_problem(kind, 200, 8, 16, 6,
+                                                     seed=17)
+    hop_limits = np.array([1, 2, 5, 9, 40, 1000], np.int32)
+    st_j = tuple(jnp.asarray(a) for a in st)
+    ev_j = (jsearch._exact_eval if kind == "exact"
+            else jsearch._pq_eval)(jnp.asarray(table))
+    args_j = (jnp.asarray(ctxs), jnp.asarray(adj), ev_j, 16,
+              jnp.asarray(hop_limits), jnp.asarray(budgets))
+    want = jsearch.BeamStepKernel().run_batch(st_j, *args_j)
+
+    class Interpret(jsearch.PallasBeamStep):
+        request = "interpret"
+
+    fused = Interpret().run_batch(st_j, *args_j)
+    ev_t = (tsearch._exact_eval if kind == "exact"
+            else tsearch._pq_eval)(torch.from_numpy(table))
+    got = tsearch.run_batch(_to_torch(st), torch.from_numpy(ctxs),
+                            torch.from_numpy(adj), ev_t, 16,
+                            torch.from_numpy(hop_limits),
+                            torch.from_numpy(budgets))
+    _assert_same(got, want)
+    _assert_same(got, fused)
+    assert got[4].numpy().max() > 9                 # some lane walked far

@@ -26,14 +26,17 @@ from repro_torch.core import search as tsearch  # noqa: E402
 from repro_torch.kernels import decode_attention as da_kernel  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import pq_scan as pq_kernel  # noqa: E402
+from repro_torch.models import attention as tattn  # noqa: E402
+from repro_torch.models import layers as tlayers  # noqa: E402
 from repro_torch.pq import adc as tadc  # noqa: E402
 
 torch.set_num_threads(1)
 T = torch.from_numpy
 # (B, Hq, Hkv, S, d): the reference's sweep (test_kernels.py:63) plus a
-# group of 2 and a group of 7 (qwen2-7b's) with S not a multiple of 512.
+# group of 2 and a group of 7 (qwen2-7b's) with S not a multiple of 512,
+# and d = 8 (the reference's deepseek_coder_33b smoke config).
 DA_SHAPES = [(2, 8, 2, 700, 64), (1, 4, 4, 512, 32), (3, 6, 1, 130, 16),
-             (2, 4, 2, 300, 16), (2, 14, 2, 1000, 32)]
+             (2, 4, 2, 300, 16), (2, 14, 2, 1000, 32), (2, 8, 2, 300, 8)]
 # (N, M, K, Q): the reference's sweep (test_kernels.py:38) plus M not a
 # multiple of 16 with K not a power of two.
 PQ_SHAPES = [(200, 8, 16, 2), (513, 16, 256, 3), (64, 4, 64, 1),
@@ -242,31 +245,37 @@ def test_new_kernels_raise_for_other_devices():
                                torch.zeros(5, 4, dtype=torch.uint8))
 
 
-def test_decode_attention_splits_fill_the_card():
-    for b, hkv, s in [(16, 4, 32768), (1, 4, 524288), (8, 4, 160),
-                      (3, 1, 130), (200, 8, 64)]:
-        sp = da_kernel.num_splits(b, hkv, s)
-        tiles = -(-s // da_kernel.TILE)
-        assert 1 <= sp <= min(tiles, da_kernel.MAX_SPLITS)
-        assert b * hkv * sp >= min(da_kernel._TARGET_BLOCKS, b * hkv * tiles)
-    assert da_kernel.num_splits(16, 4, 32768) == 9
-    assert da_kernel.num_splits(1, 4, 524288) == 132
-
-
 def test_helpers_default_to_the_card():
-    """``pack_filter`` and ``constant_alpha`` run on the card unless the
-    caller asks for the CPU, like every other entry point of the port."""
+    """``pack_filter``, ``constant_alpha`` and the LM's five init helpers
+    (``dense_init``, ``embed_init``, ``swiglu_init``, ``gqa_init``,
+    ``gqa_init_cache``) run on the card unless the caller asks for the CPU
+    (or, for the init helpers, ``"meta"``), like every other entry point of
+    the port."""
     allowed = np.ones((2, 40), bool)
-    assert tsearch.pack_filter(allowed, 40, device="cpu").device.type == "cpu"
-    assert tmapping.constant_alpha(5, 1.2, device="cpu").device.type == "cpu"
-    if torch.cuda.is_available():
-        assert tsearch.pack_filter(allowed, 40).device.type == "cuda"
-        assert tmapping.constant_alpha(5, 1.2).device.type == "cuda"
-        return
-    with pytest.raises(RuntimeError):
-        tsearch.pack_filter(allowed, 40)
-    with pytest.raises(RuntimeError):
-        tmapping.constant_alpha(5, 1.2)
+    cfg = tattn.GqaConfig(d_model=16, n_heads=4, n_kv_heads=2, d_head=4,
+                          qkv_bias=True)
+    init = {
+        "pack_filter": lambda **kw: tsearch.pack_filter(allowed, 40, **kw),
+        "constant_alpha": lambda **kw: tmapping.constant_alpha(5, 1.2, **kw),
+        "dense_init": lambda **kw: tlayers.dense_init(None, 4, 3, **kw),
+        "embed_init": lambda **kw: tlayers.embed_init(None, 10, 4, **kw),
+        "swiglu_init": lambda **kw: tlayers.swiglu_init(
+            None, 4, 8, **kw)["w_down"],
+        "gqa_init": lambda **kw: tattn.gqa_init(None, cfg, **kw)["bk"],
+        "gqa_init_cache": lambda **kw: tattn.gqa_init_cache(
+            cfg, 2, 6, **kw)["v"],
+    }
+    lm = ("dense_init", "embed_init", "swiglu_init", "gqa_init",
+          "gqa_init_cache")
+    for name, fn in init.items():
+        assert fn(device="cpu").device.type == "cpu", name
+        if name in lm:
+            assert fn(device="meta").device.type == "meta", name
+        if torch.cuda.is_available():
+            assert fn().device.type == "cuda", name
+        else:
+            with pytest.raises(RuntimeError):
+                fn()
 
 
 # ------------------------------------------------------------ on the card
@@ -280,7 +289,10 @@ def _count(name):
 @pytest.mark.parametrize("b,hq,hkv,s,d", DA_SHAPES + [(4, 28, 4, 4096, 128),
                                                       (8, 28, 4, 160, 128),
                                                       (1, 28, 4, 70000, 128),
-                                                      (2, 32, 2, 333, 256)])
+                                                      (2, 32, 2, 333, 256),
+                                                      (2, 14, 2, 257, 24),
+                                                      (1, 7, 1, 999, 200),
+                                                      (2, 4, 2, 333, 48)])
 def test_decode_attention_kernel_matches_plain_on_card(card, b, hq, hkv, s,
                                                        d):
     g = torch.Generator(device=card).manual_seed(s + hq)
@@ -307,6 +319,45 @@ def test_decode_attention_kernel_matches_plain_on_card(card, b, hq, hkv, s,
     torch.cuda.synchronize()
     assert torch.equal(got[0], torch.zeros_like(got[0]))
     torch.testing.assert_close(got, want, rtol=3e-4, atol=3e-4)
+
+
+@pytest.mark.gpu
+def test_decode_attention_splits_fill_the_card(card):
+    """The splits the kernel's library picks fill the card's resident block
+    slots in one wave: no second wave, and no room left for one more split
+    of every head.  The slots are the splits of one (row, head) over a
+    long cache, a whole number of blocks per streaming multiprocessor
+    where they stay under the cap of 1024 splits (small head dims fit
+    more blocks than that)."""
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    for b, hkv, s, d in [(16, 4, 32768, 128), (1, 4, 524288, 128),
+                         (8, 4, 160, 128), (3, 1, 130, 64),
+                         (200, 8, 64, 128), (2, 2, 333, 256),
+                         (2, 2, 333, 8), (1, 1, 99, 200)]:
+        slots = da_kernel.num_splits(1, 1, 16 * 2**20, d)
+        sp = da_kernel.num_splits(b, hkv, s, d)
+        tiles = -(-s // 16)
+        assert 1 <= sp <= min(tiles, 1024)
+        if slots == 1024:
+            continue
+        assert slots % sms == 0
+        assert b * hkv * sp <= max(slots, b * hkv)
+        assert sp == tiles or b * hkv * (sp + 1) > slots
+    if sms == 132:                    # an H100 SXM: two blocks an SM at 128
+        assert da_kernel.num_splits(16, 4, 32768, 128) == 4
+        assert da_kernel.num_splits(1, 4, 524288, 128) == 66
+
+
+@pytest.mark.gpu
+def test_decode_attention_kernel_refuses_other_head_dims(card):
+    q = torch.rand((1, 4, 12), device=card)
+    k = torch.rand((1, 9, 2, 12), device=card).bfloat16()
+    lens = torch.ones(1, device=card, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        da_kernel.decode_attention_cuda(q, k, k, lens)
+    q, k = torch.rand((1, 4, 264), device=card), k.new_zeros((1, 9, 2, 264))
+    with pytest.raises(ValueError):
+        da_kernel.decode_attention_cuda(q, k, k, lens)
 
 
 @pytest.mark.gpu
@@ -355,3 +406,27 @@ def test_adc_topk_on_card_matches_cpu(card, monkeypatch):
     assert after["pq_scan"] - before["pq_scan"] == 3
     assert after["topk"] - before["topk"] == 3
     assert torch.equal(gv.cpu(), cv) and torch.equal(gi.cpu(), ci)
+
+
+@pytest.mark.gpu
+def test_decode_attention_kernel_holds_large_logits_on_card(card):
+    """Logits near 30 (|q.k| / sqrt(d)): the kernel's hi + lo split of q and
+    P keeps 3e-4, where q rounded to bfloat16 alone would not; two launches
+    agree bit for bit."""
+    b, hq, hkv, s, d = 4, 28, 4, 4096, 128
+    g = torch.Generator(device=card).manual_seed(9)
+    k = torch.randn((b, s, hkv, d), generator=g, device=card).bfloat16()
+    v = torch.randn((b, s, hkv, d), generator=g, device=card).bfloat16()
+    q = 8.0 * torch.randn((b, hq, d), generator=g, device=card)
+    lens = torch.tensor([s, 101, 3000, 1], dtype=torch.int32, device=card)
+    want = ref.decode_attention_gqa_ref(q, k, v, lens)
+    logits = torch.einsum("bkgd,bskd->bkgs", q.reshape(b, hkv, -1, d),
+                          k.float()) / d ** 0.5
+    assert float(logits.abs().max()) > 30.0
+    rounded = ref.decode_attention_gqa_ref(q.bfloat16().float(), k, v, lens)
+    assert float((rounded - want).abs().max()) > 3e-4   # the case bites
+    got = ops.decode_attention(q, k, v, lens)
+    again = ops.decode_attention(q, k, v, lens)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=3e-4, atol=3e-4)
+    assert torch.equal(got, again)
