@@ -20,10 +20,16 @@ Phases, each printed on its own lines; any failure exits non-zero:
    (hop limits up to 200), each bit-identical to ``beam_step_ref`` hop by
    hop on integer data, with the lanes it leaves movable counted; its
    device time per hop beside the one-hop launch's; ``l2_distance`` at the k-NN shape (4096 x 65536
-   x 128) float32 within rtol 1e-4 / atol 1e-3, bfloat16 at 1024 x 8192 x
-   128 within 2e-2 / 2e-1; ``topk`` on that float32 output at k = 17 and 10
-   (and on a row with planted ties, a row with fewer than k finite entries
-   and 8 rows cut into segments): values bitwise and ids exactly equal;
+   x 128) float32 within rtol 1e-4 / atol 1e-3, on integer operands
+   (0-255) at that shape bit-identical, on SIFT-scale near duplicates
+   (1024 x 8192) within rtol 1e-4 / atol 1e-3 of float64 and no more than
+   4x the plain version's error, bfloat16 at 1024 x 8192 x 128 within
+   2e-2 / 2e-1; its bound is that of its three TF32 products on the tensor
+   cores, printed beside the float32 SIMT bound; ``topk`` on that float32
+   output at k = 17 and 10 (and on a row with planted ties, a row with
+   fewer than k finite entries and 8 rows cut into segments), and at
+   [adc]'s chunk shape (256 x 1M, k = 10, timed too): values bitwise and
+   ids exactly equal;
    ``lid_estimate`` at 1M x 16 within rtol 1e-4; ``decode_attention`` at
    qwen2-7b's heads (28 query, 4 KV, d=128, bfloat16 cache) at
    [lm-serve]'s shape (B=8, S=160), at the ``decode_32k`` shape with batch
@@ -109,6 +115,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 BF16_TC_OPS_PER_S = 989e12                # dense, tensor cores
+TF32_TC_OPS_PER_S = 495e12                # dense, tensor cores
 RECALL_FLOOR = 0.80
 FLOAT_RTOL = 1e-5
 KERNEL_N, KERNEL_Q = 1_000_000, 1024     # phase 2: serving shape
@@ -492,6 +499,70 @@ def bound_of(nbytes: float, ops: float,
                                        else "operations")
 
 
+def sift_near_duplicates(dev, g) -> tuple[float, float]:
+    """``l2_distance`` at SIFT scale (coordinates in [0, 255], |q|^2 near
+    2.8e6) on 1024 queries against a near duplicate of each (coordinates
+    moved by up to 40: d2 about 2% of |q|^2) and 7168 far points: within
+    rtol 1e-4 / atol 1e-3 of float64, and no more than 4x the plain float32
+    version's error.  Returns both max abs errors."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    q = torch.rand((1024, 128), generator=g, device=dev) * 255
+    near = q + (torch.rand(q.shape, generator=g, device=dev) - 0.5) * 80
+    far = torch.rand((7168, 128), generator=g, device=dev) * 255
+    x = torch.cat([near.clamp(0, 255), far])
+    q64, x64 = q.double(), x.double()
+    truth = ((q64 * q64).sum(1, keepdim=True) - 2 * q64 @ x64.T
+             + (x64 * x64).sum(1)).clamp_min(0)
+    got = ops.bulk_l2(q, x).double()
+    plain = ref.l2_distance_ref(q, x).double()
+    sync(dev)
+    if not torch.allclose(got, truth, rtol=1e-4, atol=1e-3):
+        raise AssertionError("l2_distance on SIFT-scale near duplicates "
+                             "differs from float64 beyond rtol 1e-4")
+    err = float((got - truth).abs().max())
+    err_plain = float((plain - truth).abs().max())
+    if err > 4 * err_plain:
+        raise AssertionError(f"l2_distance error {err:.3g} on SIFT-scale "
+                             f"near duplicates exceeds 4x the plain "
+                             f"version's {err_plain:.3g}")
+    return err, err_plain
+
+
+def topk_adc_shape(dev, g, d: int) -> dict:
+    """``topk`` at [adc]'s chunk shape (256 queries x 1M, k = 10, rows cut
+    into segments): held to the plain version, then timed."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import topk as topk_kernel
+
+    nq, n, k = PQ_Q, KERNEL_N, ADC_K
+    dist = ops.bulk_l2(torch.randn((nq, d), generator=g, device=dev),
+                       torch.randn((n, d), generator=g, device=dev))
+    gv, gi = ops.topk(dist, k)
+    wv, wi = ref.topk_ref(dist, k)
+    sync(dev)
+    if not (torch.equal(gv, wv) and torch.equal(gi, wi)):
+        raise AssertionError(f"topk at {nq}x{n} k={k} differs from the plain "
+                             f"version")
+    segs = -(-n // topk_kernel.segment_length(nq, n, topk_kernel.warp_slots()))
+    ms, host = time_calls(lambda: ops.topk(dist, k), hold=True)
+    plain_ms, _ = time_calls(lambda: ref.topk_ref(dist, k), hold=False)
+    lib_ms, _ = time_calls(lambda: torch.topk(dist, k, dim=1, largest=False),
+                           hold=False)
+    bound = bound_of(nq * n * 4 + nq * k * 8, nq * n)
+    log(f"[phase2] topk {nq}x{n} k={k} ([adc]'s chunk, {segs} segments a "
+        f"row): values bitwise and ids equal to the plain version; kernel "
+        f"{ms:.4f} ms on the device ({host:.4f} ms host), plain "
+        f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound {bound[0]:.4f} "
+        f"ms ({bound[1]})")
+    return {"shape": [nq, n, k], "segments": segs, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound[0]}
+
+
 def check_bulk_kernels(dev, seed: int) -> list[dict]:
     """Phase 2 for ``l2_distance``, ``topk`` and ``lid_estimate`` at the
     shapes the main path gives them: one k-NN chunk of the build (4096
@@ -517,6 +588,15 @@ def check_bulk_kernels(dev, seed: int) -> list[dict]:
                              "version beyond rtol 1e-4 / atol 1e-3")
     err = float((got - want).abs().max())
     del want
+    # Integer operands in SIFT's range (0-255) at the k-NN shape: exact.
+    qi = torch.randint(0, 256, q.shape, generator=g, device=dev).float()
+    xi = torch.randint(0, 256, x.shape, generator=g, device=dev).float()
+    xi[:KNN_Q // 2] = qi[:KNN_Q // 2]
+    if not torch.equal(ops.bulk_l2(qi, xi), ref.l2_distance_ref(qi, xi)):
+        raise AssertionError("l2_distance on integer operands differs from "
+                             "the plain version")
+    del qi, xi
+    err_sift, err_sift_plain = sift_near_duplicates(dev, g)
     qb, xb = q[:1024].bfloat16(), x[:8192].bfloat16()
     got_b, want_b = ops.bulk_l2(qb, xb), ref.l2_distance_ref(qb, xb)
     sync(dev)
@@ -528,16 +608,26 @@ def check_bulk_kernels(dev, seed: int) -> list[dict]:
     plain_ms, _ = time_calls(lambda: ref.l2_distance_ref(q, x), hold=False)
     lib_ms, _ = time_calls(lambda: distance.squared_l2(q, x), hold=False)
     nq, n, d = KNN_Q, KNN_N, cfg.d
-    bound = bound_of((nq + n) * d * 4 + nq * n * 4,
-                     2 * nq * n * d + 2 * (nq + n) * d + 3 * nq * n)
+    nbytes = (nq + n) * d * 4 + nq * n * 4
+    # The cross term as the kernel takes it: three TF32 products (3xTF32)
+    # on the tensor cores; beside it, the bound of any float32 SIMT kernel.
+    bound = bound_of(nbytes, 3 * 2 * nq * n * d, TF32_TC_OPS_PER_S)
+    simt = bound_of(nbytes, 2 * nq * n * d + 2 * (nq + n) * d + 3 * nq * n)
     log(f"[phase2] l2_distance {nq}x{n}x{d} float32: within rtol 1e-4 (max "
-        f"abs err {err:.3g}); bfloat16 1024x8192x{d} within 2e-2 (max abs "
-        f"err {err_b:.3g}); kernel {ms:.4f} ms on the device ({host:.4f} ms "
-        f"host), plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
-        f"{bound[0]:.4f} ms ({bound[1]})")
-    out.append(record("l2_distance", err, ms, plain_ms, lib_ms, bound,
-                      "float32 within rtol 1e-4 / atol 1e-3; bfloat16 "
-                      "within 2e-2 / 2e-1"))
+        f"abs err {err:.3g}); integer operands (0-255) bit-identical; SIFT-"
+        f"scale near duplicates within rtol 1e-4 of float64 (max abs err "
+        f"{err_sift:.3g}, plain float32 {err_sift_plain:.3g}); bfloat16 "
+        f"1024x8192x{d} within 2e-2 (max abs err {err_b:.3g}); kernel "
+        f"{ms:.4f} ms on the device ({host:.4f} ms host), plain "
+        f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound {bound[0]:.4f} ms "
+        f"({bound[1]}, 3xTF32 on the tensor cores; float32 SIMT bound "
+        f"{simt[0]:.4f} ms)")
+    rec = record("l2_distance", err, ms, plain_ms, lib_ms, bound,
+                 "float32 within rtol 1e-4 / atol 1e-3; integer operands "
+                 "bit-identical; SIFT-scale near duplicates within rtol "
+                 "1e-4 of float64; bfloat16 within 2e-2 / 2e-1")
+    rec["bound_fp32_simt_ms"] = simt[0]
+    out.append(rec)
 
     # topk on that matrix, plus planted ties, a row with fewer than k
     # finite entries, and a few rows cut into segments.
@@ -569,9 +659,11 @@ def check_bulk_kernels(dev, seed: int) -> list[dict]:
     log(f"[phase2] topk {nq}x{n} k={k}: kernel {ms:.4f} ms on the device "
         f"({host:.4f} ms host), plain {plain_ms:.4f} ms, library "
         f"{lib_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]})")
-    out.append(record("topk", 0.0, ms, plain_ms, lib_ms, bound,
-                      "values bitwise, ids equal"))
+    rec = record("topk", 0.0, ms, plain_ms, lib_ms, bound,
+                 "values bitwise, ids equal")
     del d, tied, q, x
+    rec["adc_shape"] = topk_adc_shape(dev, g, cfg.d)
+    out.append(rec)
 
     # lid_estimate on 1M ascending k=16 rows, duplicates included.
     b, kk = sift1m().n, 16

@@ -1,8 +1,13 @@
 """The squared-L2 distance matrix as a hand-written CUDA kernel for Hopper.
 
 Replaces ``repro/kernels/l2_distance.py::l2_distance`` (Pallas, TPU).  The
-source is ``repro_torch/csrc/l2_distance.cu``: a float32 SIMT GEMM with the
-norms fused (no tensor cores, no TF32).  The plain version is
+source is ``repro_torch/csrc/l2_distance.cu``: the cross term on the
+tensor cores, float32 operands as three TF32 products on ``wgmma`` (each
+operand split into a TF32 big and a TF32 small part, a partial per slice of
+32 along D: float32 accuracy, and integer inputs with |v| <= 2048 exact),
+bfloat16 operands as one ``mma.sync`` bf16 product; persistent blocks stream
+both operand tiles through a ``cp.async`` ring, and a first launch sums the
+float32 norms into a scratch the wrapper allocates.  The plain version is
 :func:`repro_torch.kernels.ref.l2_distance_ref`; the device dispatch lives in
 :func:`repro_torch.kernels.ops.bulk_l2`.
 """
@@ -15,9 +20,8 @@ import torch
 from repro_torch.kernels import _build
 
 LIB = _build.Library("l2_distance", "repro_l2_distance",
-                     [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4)
+                     [ctypes.c_int] * 4 + [ctypes.c_void_p] * 5)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_Q = 65535 * 128          # the grid's y dimension covers 128 rows each
 
 # Kernel launches since the last reset: one per launch, nowhere else.
 launches = {"l2_distance": 0}
@@ -36,15 +40,14 @@ def l2_distance_cuda(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
                          f"one type, got {q.dtype} and {x.dtype}")
     nq, d = q.shape
     n = x.shape[0]
-    if nq > _MAX_Q:
-        raise ValueError(f"l2_distance: at most {_MAX_Q} query rows, got {nq}")
     _build.need(q, "q", q.dtype, (nq, d), dev)
     _build.need(x, "x", q.dtype, (n, d), dev)
     out = torch.empty((nq, n), dtype=torch.float32, device=dev)
     if nq == 0 or n == 0:
         return out
+    norms = torch.empty(nq + n, dtype=torch.float32, device=dev)  # scratch
     rc = LIB.fn()(_DTYPES[q.dtype], nq, n, d, q.data_ptr(), x.data_ptr(),
-                  out.data_ptr(), _build.stream(dev))
+                  norms.data_ptr(), out.data_ptr(), _build.stream(dev))
     if rc != 0:
         raise RuntimeError(f"l2_distance kernel launch failed: CUDA error {rc}")
     launches["l2_distance"] += 1

@@ -1,12 +1,16 @@
 """k smallest entries per row as a hand-written CUDA kernel for Hopper.
 
 Replaces ``repro/kernels/topk.py::topk`` (Pallas, TPU).  The source is
-``repro_torch/csrc/topk.cu``: one pass over the matrix, one compare per
-element against the k-th of the best k so far, the few that pass collected
-in shared memory and compacted by a sort on (value, id); rows too short to
-fill the card are cut into segments whose partial lists a second launch
-merges.  The plain version is :func:`repro_torch.kernels.ref.topk_ref`; the
-device dispatch lives in :func:`repro_torch.kernels.ops.topk`.
+``repro_torch/csrc/topk.cu``: a warp-select with no block barrier.  One warp
+streams a row, or a segment of one, with 16-byte loads, compares each
+element with the k-th of its best so far, appends the few that pass to a
+warp-private buffer (slots from ``__ballot_sync``) and merges a full buffer
+into its sorted best by a bitonic network in registers on (value, id).
+Rows are cut into segments only when they alone would leave the card's
+resident warps idle (:func:`segment_length`); a second launch merges the
+segments' lists.  The plain version is
+:func:`repro_torch.kernels.ref.topk_ref`; the device dispatch lives in
+:func:`repro_torch.kernels.ops.topk`.
 """
 from __future__ import annotations
 
@@ -17,10 +21,10 @@ import torch
 from repro_torch.kernels import _build
 
 LIB = _build.Library("topk", "repro_topk",
-                     [ctypes.c_int] * 4 + [ctypes.c_void_p] * 6)
+                     [ctypes.c_int] * 4 + [ctypes.c_void_p] * 6,
+                     extra={"repro_topk_warp_slots": []})
 MAX_K = 64
-_TARGET_BLOCKS = 4 * 132      # about four blocks per SM of an H100
-_MIN_SEGMENT = 2048
+_MIN_SEGMENT = 4096           # columns a segment's warp streams at least
 
 # Kernel launches since the last reset: one per call that launches the
 # kernel (a segmented call's merge launch included), nowhere else.
@@ -35,12 +39,23 @@ def check_k(k: int, n: int) -> None:
         raise ValueError(f"topk: k={k} exceeds the row length {n}")
 
 
-def segment_length(q: int, n: int) -> int:
-    """Columns per block: a whole row when there are rows enough to fill
-    the card, else segments of at least ``_MIN_SEGMENT`` columns."""
-    want = -(-_TARGET_BLOCKS // max(q, 1))
-    segs = max(1, min(want, n // _MIN_SEGMENT))
+def segment_length(q: int, n: int, slots: int) -> int:
+    """Columns per warp: a whole row when the ``q`` rows alone fill the
+    card's ``slots`` resident warps, else as many segments a row as keep
+    every segment's warp in one wave, each of at least ``_MIN_SEGMENT``
+    columns."""
+    segs = max(1, min(slots // max(q, 1), n // _MIN_SEGMENT))
     return -(-n // segs)
+
+
+def warp_slots() -> int:
+    """Warps of the select kernel the current card holds at once (the
+    occupancy calculator's count, from the library)."""
+    slots = LIB.fn("repro_topk_warp_slots")()
+    if slots <= 0:
+        raise RuntimeError(f"topk: occupancy query failed: CUDA error "
+                           f"{-slots}")
+    return slots
 
 
 def topk_cuda(d: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -57,7 +72,7 @@ def topk_cuda(d: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     out_i = torch.empty((q, k), dtype=torch.int32, device=dev)
     if q == 0:
         return out_v, out_i
-    seg = segment_length(q, n)
+    seg = segment_length(q, n, warp_slots())
     segs = -(-n // seg)
     part_v = part_i = None
     if segs > 1:

@@ -251,12 +251,19 @@ def test_kernels_raise_for_other_devices():
 
 
 def test_topk_segments_cover_the_row():
-    for q, n in [(1, 1_000_000), (4096, 65536), (3, 1025), (10000, 65536),
-                 (64, 5000)]:
-        seg = topk_kernel.segment_length(q, n)
-        segs = -(-n // seg)
-        assert 1 <= seg <= n and (segs - 1) * seg < n <= segs * seg
-    assert topk_kernel.segment_length(4096, 65536) == 65536
+    # slots: resident warps of the select, e.g. 132 SMs x 4 blocks x 8 warps.
+    for slots in (4224, 1, 100_000):
+        for q, n in [(1, 1_000_000), (4096, 65536), (3, 1025),
+                     (10000, 65536), (64, 5000), (256, 1_000_000)]:
+            seg = topk_kernel.segment_length(q, n, slots)
+            segs = -(-n // seg)
+            assert 1 <= seg <= n and (segs - 1) * seg < n <= segs * seg
+            # Segments never outnumber the slots the rows leave free.
+            assert segs == 1 or q * segs <= slots
+    # The k-NN's rows fill the card alone; [adc]'s 256 rows take 16
+    # segments each, one wave of 4096 warps.
+    assert topk_kernel.segment_length(4096, 65536, 4224) == 65536
+    assert topk_kernel.segment_length(256, 1_000_000, 4224) == 62500
 
 
 # ------------------------------------------------------------ on the card
@@ -332,3 +339,103 @@ def test_scans_on_card_match_cpu(card):
     kd, ki = tdist.knn_graph(T(x).to(card), 16, chunk_q=512, chunk=1000)
     pd, pi = tdist.knn_graph(T(x), 16, chunk_q=512, chunk=1000)
     assert torch.equal(ki.cpu(), pi) and torch.equal(kd.cpu(), pd)
+
+
+@pytest.mark.gpu
+def test_l2_kernel_integer_bit_identical_on_card(card):
+    """SIFT's integer range (0-255) at the k-NN width: TF32's big part is
+    exact and its small part 0, every sum is below 2^24, so the tensor
+    cores' result equals the plain version's bit for bit."""
+    g = torch.Generator(device=card).manual_seed(31)
+    q = torch.randint(0, 256, (4096, 128), generator=g, device=card).float()
+    x = torch.randint(0, 256, (8192, 128), generator=g, device=card).float()
+    x[:64] = q[:64]                                   # d2 = 0 pairs
+    got = ops.bulk_l2(q, x)
+    want = ref.l2_distance_ref(q, x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert bool((got[torch.arange(64), torch.arange(64)] == 0).all())
+
+
+@pytest.mark.gpu
+def test_l2_kernel_sift_near_duplicates_on_card(card):
+    """SIFT-scale coordinates (0-255) with a near duplicate of every query
+    (d2 about 2% of |q|^2): within rtol 1e-4 / atol 1e-3 of a float64
+    distance, and no more than 4x the plain float32 version's error."""
+    g = torch.Generator(device=card).manual_seed(32)
+    q = torch.rand((512, 128), generator=g, device=card) * 255
+    near = (q + (torch.rand(q.shape, generator=g, device=card) - 0.5) * 80)
+    far = torch.rand((1536, 128), generator=g, device=card) * 255
+    x = torch.cat([near.clamp(0, 255), far])
+    q64, x64 = q.double(), x.double()
+    truth = ((q64 * q64).sum(1, keepdim=True) - 2 * q64 @ x64.T
+             + (x64 * x64).sum(1)).clamp_min(0)
+    got = ops.bulk_l2(q, x)
+    plain = ref.l2_distance_ref(q, x)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.double(), truth, rtol=1e-4, atol=1e-3)
+    err = float((got.double() - truth).abs().max())
+    assert err <= 4 * float((plain.double() - truth).abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [8, 20, 21, 96, 960])
+def test_l2_kernel_widths_on_card(card, d, dtype):
+    """Depths that are not a multiple of the 32-element stage, rows that
+    are not 16-byte aligned (D = 21; bf16 D = 20), and N % 4 != 0."""
+    g = torch.Generator(device=card).manual_seed(d)
+    tdt = getattr(torch, dtype)
+    q = torch.randn((131, d), generator=g, device=card).to(tdt)
+    x = torch.randn((1027, d), generator=g, device=card).to(tdt)
+    got = ops.bulk_l2(q, x)
+    want = ref.l2_distance_ref(q, x)
+    torch.cuda.synchronize()
+    rtol, atol = (1e-4, 1e-3) if dtype == "float32" else (2e-2, 2e-1)
+    torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
+
+
+def _hard_rows(g, card, q, n, k):
+    """Rows that stress the select: planted ties, an all-+inf row, a row
+    with NaN (at least k entries stay numbers), a descending row (every
+    element passes the bar), and random rows."""
+    d = torch.rand((q, n), generator=g, device=card)
+    d[0] = torch.randint(0, 5, (n,), generator=g, device=card).float()
+    d[1] = torch.inf
+    nan = torch.rand((n,), generator=g, device=card) < 0.3
+    nan[:k] = False
+    d[2, nan] = torch.nan
+    d[3] = torch.arange(n, 0, -1, device=card).float()
+    return d
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 17, 64])
+@pytest.mark.parametrize("n", [1025, 5000, 65537])
+def test_topk_kernel_unaligned_rows_on_card(card, n, k):
+    g = torch.Generator(device=card).manual_seed(n + k)
+    for q in (6, 4):            # 4 rows: segments where n allows them
+        d = _hard_rows(g, card, q, n, k)
+        got_v, got_i = ops.topk(d, k)
+        want_v, want_i = ref.topk_ref(d, k)
+        torch.cuda.synchronize()
+        assert torch.equal(got_v, want_v)
+        assert torch.equal(got_i, want_i)
+        assert torch.equal(got_i[1], torch.arange(k, device=card,
+                                                  dtype=torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q,n,k", [(256, 1_000_000, 10), (70_000, 64, 10)])
+def test_topk_kernel_path_shapes_on_card(card, q, n, k):
+    """[adc]'s chunk (256 x 1M, cut into segments) and more rows than a
+    grid's y dimension takes (65,535)."""
+    g = torch.Generator(device=card).manual_seed(q)
+    d = _hard_rows(g, card, q, n, k)
+    before = _count("topk")
+    got_v, got_i = ops.topk(d, k)
+    want_v, want_i = ref.topk_ref(d, k)
+    torch.cuda.synchronize()
+    assert _count("topk") == before + 1
+    assert torch.equal(got_v, want_v)
+    assert torch.equal(got_i, want_i)
