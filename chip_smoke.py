@@ -27,16 +27,20 @@ Phases, each printed on its own lines; any failure exits non-zero:
    2e-2 / 2e-1; its bound is that of its three TF32 products on the tensor
    cores, printed beside the float32 SIMT bound; ``topk`` on that float32
    output at k = 17 and 10 (and on a row with planted ties, a row with
-   fewer than k finite entries and 8 rows cut into segments), and at
-   [adc]'s chunk shape (256 x 1M, k = 10, timed too): values bitwise and
-   ids exactly equal;
-   ``lid_estimate`` at 1M x 16 within rtol 1e-4; ``decode_attention`` at
+   fewer than k finite entries and 8 rows cut into segments), at k = 100
+   and 101 (the 128-key warp-select), at k = 2048 (the radix select) on 8
+   rows with ties, +inf and NaN, and at [adc]'s chunk shape (256 x 1M,
+   k = 10 and 100), each timed: values bitwise and ids exactly equal;
+   ``lid_estimate`` at 1M x 16, 1M x 1 and 100k x 100 within rtol 1e-4
+   (timed at 1M x 16); ``decode_attention`` at
    qwen2-7b's heads (28 query, 4 KV, d=128, bfloat16 cache) at
    [lm-serve]'s shape (B=8, S=160), at the ``decode_32k`` shape with batch
    cut to 16 and at the ``long_500k`` shape, ragged kv_len including 0, 1
    and S, within 3e-4; ``pq_scan`` at
    (256, 16, 256) LUTs x (1M, 16) codes, bit for bit on integer-valued LUTs
-   and within 1e-5 on float LUTs.  Each kernel's device time per launch
+   and within 1e-5 on float LUTs, timed on random codes and on all-zero
+   codes (the design's conflict-free floor on the card), beside its bytes
+   bound and shared memory's own floor.  Each kernel's device time per launch
    (launches queued back to back behind a sleep kernel, so host work is not
    timed), the plain version's time, the library call's time where one
    PyTorch call computes the same function, and the bound;
@@ -67,7 +71,9 @@ Phases, each printed on its own lines; any failure exits non-zero:
    time of one ``retrieval_cand``-shaped call (1 query x 1M candidates);
    fails unless both kernels launched once per chunk, and unless the
    first chunk's results and the 1-query call's equal ``pq_scan_ref`` +
-   ``topk_ref`` on the same LUTs, values and ids;
+   ``topk_ref`` on the same LUTs, values and ids; then, after the counts
+   are read, ``adc_topk(k=100)`` over the first chunk, held to the plain
+   versions and to the k=10 run, and timed;
 4. the LM paths, with the MCGI world freed — qwen2-7b at full width
    (``repro_torch/configs/qwen2_7b.py``: 28 layers, d_model 3584, 28 query
    and 4 KV heads, d_ff 18944, vocab 152064, QKV bias), weights drawn from
@@ -146,6 +152,11 @@ MCGI_KERNELS = ("beam_step.exact", "beam_step.pq", "l2_distance", "topk",
 ATTN_TOL = 3e-4                          # the reference's kernel tolerance
 PQ_Q, PQ_M, PQ_K = 256, 16, 256          # one adc_topk chunk at N = 1M
 ADC_K = 10
+ADC_K_WIDE = 100                         # recall@100's k
+TOPK_K_RADIX = 2048                      # a k past the warp-select's 256
+# Instructions of IEEE sqrtf + division + logf an element, counted as
+# float32 operations for lid_estimate's bound.
+LID_OPS_PER_ELEMENT = 40
 LM_BATCH, LM_PROMPT, LM_GEN = 8, 128, 32
 # [lm-serve] steps whose layer-0 decode_attention is held to the plain
 # version: the first, the last teacher-forced and the last generated.
@@ -531,36 +542,54 @@ def sift_near_duplicates(dev, g) -> tuple[float, float]:
     return err, err_plain
 
 
-def topk_adc_shape(dev, g, d: int) -> dict:
-    """``topk`` at [adc]'s chunk shape (256 queries x 1M, k = 10, rows cut
-    into segments): held to the plain version, then timed."""
+def topk_timed(dist, k: int, what: str) -> dict:
+    """``topk`` of ``dist`` at ``k``: held to the plain version (values
+    bitwise, ids equal), then timed beside the plain version, the library
+    call (``torch.topk``) and the bound; one ``[phase2] topk`` line."""
     import torch
 
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import topk as topk_kernel
 
-    nq, n, k = PQ_Q, KERNEL_N, ADC_K
-    dist = ops.bulk_l2(torch.randn((nq, d), generator=g, device=dev),
-                       torch.randn((n, d), generator=g, device=dev))
+    nq, n = dist.shape
     gv, gi = ops.topk(dist, k)
     wv, wi = ref.topk_ref(dist, k)
-    sync(dev)
+    sync(dist.device)
     if not (torch.equal(gv, wv) and torch.equal(gi, wi)):
-        raise AssertionError(f"topk at {nq}x{n} k={k} differs from the plain "
-                             f"version")
-    segs = -(-n // topk_kernel.segment_length(nq, n, topk_kernel.warp_slots()))
+        bad = int(((gv != wv) | (gi != wi)).any(1).sum())
+        raise AssertionError(f"topk at {nq}x{n} k={k} ({what}): {bad} rows "
+                             f"differ from the plain version")
+    del gv, gi, wv, wi
+    slots = topk_kernel.warp_slots(k)
+    if slots == 0:
+        how = "radix select, a block a row"
+    else:
+        segs = -(-n // topk_kernel.segment_length(nq, n, slots))
+        how = f"warp-select, {segs} segment{'s' if segs > 1 else ''} a row"
     ms, host = time_calls(lambda: ops.topk(dist, k), hold=True)
     plain_ms, _ = time_calls(lambda: ref.topk_ref(dist, k), hold=False)
     lib_ms, _ = time_calls(lambda: torch.topk(dist, k, dim=1, largest=False),
                            hold=False)
     bound = bound_of(nq * n * 4 + nq * k * 8, nq * n)
-    log(f"[phase2] topk {nq}x{n} k={k} ([adc]'s chunk, {segs} segments a "
-        f"row): values bitwise and ids equal to the plain version; kernel "
-        f"{ms:.4f} ms on the device ({host:.4f} ms host), plain "
-        f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound {bound[0]:.4f} "
-        f"ms ({bound[1]})")
-    return {"shape": [nq, n, k], "segments": segs, "ms": ms,
-            "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound[0]}
+    log(f"[phase2] topk {nq}x{n} k={k} ({what}; {how}): values bitwise and "
+        f"ids equal to the plain version; kernel {ms:.4f} ms on the device "
+        f"({host:.4f} ms host), plain {plain_ms:.4f} ms, library "
+        f"{lib_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]})")
+    return {"shape": [nq, n, k], "what": what, "route": how, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound[0],
+            "bound_by": bound[1]}
+
+
+def topk_adc_shape(dev, g, d: int) -> list[dict]:
+    """``topk`` at [adc]'s chunk shape (256 queries x 1M, rows cut into
+    segments), k = 10 and 100: held to the plain version, then timed."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    dist = ops.bulk_l2(torch.randn((PQ_Q, d), generator=g, device=dev),
+                       torch.randn((KERNEL_N, d), generator=g, device=dev))
+    return [topk_timed(dist, k, "[adc]'s chunk") for k in (ADC_K, ADC_K_WIDE)]
 
 
 def check_bulk_kernels(dev, seed: int) -> list[dict]:
@@ -650,19 +679,24 @@ def check_bulk_kernels(dev, seed: int) -> list[dict]:
         log(f"[phase2] topk k={k}: values bitwise and ids equal to the plain "
             f"version ({KNN_Q}x{KNN_N}; planted ties; a row with 5 finite "
             f"entries; 8 rows in segments)")
-    k = 17
-    ms, host = time_calls(lambda: ops.topk(d, k), hold=True)
-    plain_ms, _ = time_calls(lambda: ref.topk_ref(d, k), hold=False)
-    lib_ms, _ = time_calls(lambda: torch.topk(d, k, dim=1, largest=False),
-                           hold=False)
-    bound = bound_of(nq * n * 4 + nq * k * 8, nq * n)
-    log(f"[phase2] topk {nq}x{n} k={k}: kernel {ms:.4f} ms on the device "
-        f"({host:.4f} ms host), plain {plain_ms:.4f} ms, library "
-        f"{lib_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]})")
-    rec = record("topk", 0.0, ms, plain_ms, lib_ms, bound,
-                 "values bitwise, ids equal")
-    del d, tied, q, x
+    t = topk_timed(d, 17, "k-NN chunk")
+    rec = record("topk", 0.0, t["ms"], t["plain_ms"], t["library_ms"],
+                 (t["bound_ms"], t["bound_by"]),
+                 "values bitwise, ids equal (k = 10, 17, 100, 101, "
+                 f"{TOPK_K_RADIX})")
+    # Past the 64-key list: recall@100's k (and 101, as a k-NN asks for
+    # k + 1) at the k-NN shape, and the radix select past 256 on a few
+    # rows: planted ties, a row of 5 finite entries padded by +inf, NaN.
+    wide = [topk_timed(d, kk, "k-NN chunk") for kk in (ADC_K_WIDE,
+                                                       ADC_K_WIDE + 1)]
+    few = torch.cat([d[:5], tied[:2], d[5:6]])
+    nan = torch.rand((n,), generator=g, device=dev) < 0.3
+    nan[:TOPK_K_RADIX] = False
+    few[7, nan] = torch.nan
+    wide.append(topk_timed(few, TOPK_K_RADIX, "8 rows: ties, +inf, NaN"))
+    del d, tied, q, x, few
     rec["adc_shape"] = topk_adc_shape(dev, g, cfg.d)
+    rec["large_k"] = wide
     out.append(rec)
 
     # lid_estimate on 1M ascending k=16 rows, duplicates included.
@@ -676,14 +710,33 @@ def check_bulk_kernels(dev, seed: int) -> list[dict]:
         raise AssertionError("lid_estimate differs from the plain version "
                              "beyond rtol 1e-4")
     err = float((got - want).abs().max())
+    # k = 1 (every estimate the -1/4096 cap) and k = 100 (a row in chunks
+    # of 32), zero distances included.
+    errs = {}
+    for bk, kk2 in ((b, 1), (100_000, 100)):
+        d2k = torch.sort(torch.rand((bk, kk2), generator=g, device=dev)
+                         + 0.01, dim=1).values
+        d2k[:1000, :max(1, kk2 // 4)] = 0.0
+        d2k[1000] = 0.0
+        gk, wk = ops.lid_estimate(d2k), ref.lid_ref(d2k)
+        sync(dev)
+        if not torch.allclose(gk, wk, rtol=1e-4, atol=0.0):
+            raise AssertionError(f"lid_estimate {bk}x{kk2} differs from the "
+                                 f"plain version beyond rtol 1e-4")
+        errs[kk2] = float((gk - wk).abs().max())
+        del d2k, gk, wk
     ms, host = time_calls(lambda: ops.lid_estimate(d2), hold=True)
     plain_ms, _ = time_calls(lambda: ref.lid_ref(d2), hold=False)
-    bound = bound_of(b * kk * 4 + b * 4, 4 * b * kk)
+    # Bytes, or about 40 float32 operations an element (the IEEE sqrtf,
+    # division and logf) at the float32 peak, whichever is longer.
+    bound = bound_of(b * kk * 4 + b * 4, LID_OPS_PER_ELEMENT * b * kk)
     log(f"[phase2] lid_estimate {b}x{kk}: within rtol 1e-4 (max abs err "
-        f"{err:.3g}); kernel {ms:.4f} ms on the device ({host:.4f} ms host), "
-        f"plain {plain_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]})")
-    out.append(record("lid_estimate", err, ms, plain_ms, None, bound,
-                      "within rtol 1e-4"))
+        f"{err:.3g}); {b}x1 and 100000x100 within rtol 1e-4 (max abs err "
+        f"{errs[1]:.3g}, {errs[100]:.3g}); kernel {ms:.4f} ms on the device "
+        f"({host:.4f} ms host), plain {plain_ms:.4f} ms, bound "
+        f"{bound[0]:.4f} ms ({bound[1]})")
+    out.append(record("lid_estimate", max(err, *errs.values()), ms, plain_ms,
+                      None, bound, "within rtol 1e-4 at k = 1, 16, 100"))
     return out
 
 
@@ -846,21 +899,41 @@ def check_pq_scan(dev, seed: int) -> dict:
     lib_err = float((lib_out.T - got).abs().max())
     del lib_out, got
     ms, host = time_calls(lambda: ops.pq_bulk_scan(luts, codes), hold=True)
+    # The design's floor on the card: with all-zero codes the 8 lanes of a
+    # quarter-warp read entries (0, m) of 8 different m, in 8 bank groups,
+    # as they do for any codes; a slower random-code time would be bank
+    # conflicts.
+    zeros = torch.zeros_like(codes)
+    if not torch.equal(ops.pq_bulk_scan(luts_i, zeros),
+                       ref.pq_scan_ref(luts_i, zeros)):
+        raise AssertionError("pq_scan differs from the plain version on "
+                             "all-zero codes")
+    floor_ms, _ = time_calls(lambda: ops.pq_bulk_scan(luts, zeros), hold=True)
     plain_ms, _ = time_calls(lambda: ref.pq_scan_ref(luts, codes),
                              hold=False, reps=5)
     lib_ms, _ = time_calls(lambda: F.embedding_bag(idx, weight, mode="sum"),
                            hold=False, reps=5)
     bound = bound_of(n * PQ_M + PQ_Q * PQ_M * PQ_K * 4 + PQ_Q * n * 4,
                      PQ_Q * n * PQ_M)
+    # Shared memory's own floor: one 4-byte entry a lookup at 128 bytes a
+    # cycle an SM, at the H100 SXM's top SM clock (1.98 GHz).
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    smem_ms = PQ_Q * n * PQ_M * 4 / (128 * sms * 1.98e9) * 1e3
     log(f"[phase2] pq_scan ({PQ_Q}, {PQ_M}, {PQ_K}) x ({n}, {PQ_M}): "
-        f"integer LUTs bit for bit, float LUTs within 1e-5 (max abs err "
-        f"{err:.3g}); kernel {ms:.4f} ms on the device ({host:.4f} ms host), "
-        f"plain {plain_ms:.4f} ms, library (embedding_bag, max abs diff "
-        f"{lib_err:.3g}) {lib_ms:.4f} ms, bound {bound[0]:.4f} ms "
-        f"({bound[1]})")
-    del codes, luts, luts_i, idx, weight
-    return record("pq_scan", err, ms, plain_ms, lib_ms, bound,
-                  "integer LUTs bit for bit; float LUTs within 1e-5")
+        f"integer LUTs bit for bit (random and all-zero codes), float LUTs "
+        f"within 1e-5 (max abs err {err:.3g}); kernel {ms:.4f} ms on the "
+        f"device ({host:.4f} ms host), all-zero codes (conflict-free floor) "
+        f"{floor_ms:.4f} ms, bytes bound {bound[0]:.4f} ms ({bound[1]}), "
+        f"shared-memory floor {smem_ms:.4f} ms at 1.98 GHz; plain "
+        f"{plain_ms:.4f} ms, library (embedding_bag, max abs diff "
+        f"{lib_err:.3g}) {lib_ms:.4f} ms")
+    del codes, zeros, luts, luts_i, idx, weight
+    rec = record("pq_scan", err, ms, plain_ms, lib_ms, bound,
+                 "integer LUTs bit for bit (random and all-zero codes); "
+                 "float LUTs within 1e-5")
+    rec["zero_codes_ms"] = floor_ms
+    rec["smem_floor_ms_at_1980mhz"] = smem_ms
+    return rec
 
 
 # ---------------------------------------------------------------- phase 3
@@ -1039,7 +1112,8 @@ def main_path(dev, n: int, n_queries: int, batch: int, build_batch: int,
         f"; build launches {ops.launch_counts()}")
     log(f"[build] lid_knn {timings['lid_knn']:.3f}s (exact k-NN of 1 point "
         f"in {x.shape[0]} against all through l2_distance + topk, then "
-        f"lid_estimate)")
+        f"lid_estimate); LID mu={float(graph.mu)!r} "
+        f"sigma={float(graph.sigma)!r}")
     t0 = time.perf_counter()
     index = build_tiered_index(x, graph, m_pq=M_PQ, device=dev)
     sync(dev)
@@ -1212,7 +1286,26 @@ def adc_path(world) -> dict:
     ms, host = time_calls(lambda: adc.adc_topk(one, codes, ADC_K), hold=True)
     log(f"[adc] retrieval_cand shape (1 query x {n} candidates, k={ADC_K}): "
         f"{ms:.4f} ms on the device per call ({host:.4f} ms host)")
-    del luts, vals, ids
+    # Recall@100's k over the first chunk, after the launch counts are read.
+    wv, wi = adc.adc_topk(luts[:chunk], codes, ADC_K_WIDE)
+    want_v, want_i = ref.topk_ref(ref.pq_scan_ref(luts[:chunk], codes),
+                                  ADC_K_WIDE)
+    sync(luts.device)
+    if not (torch.equal(wv, want_v) and torch.equal(wi, want_i)):
+        raise AssertionError(f"[adc] adc_topk k={ADC_K_WIDE} on a chunk of "
+                             f"{chunk} queries differs from pq_scan_ref + "
+                             f"topk_ref")
+    if not (torch.equal(wv[:, :ADC_K], vals[:chunk])
+            and torch.equal(wi[:, :ADC_K], ids[:chunk])):
+        raise AssertionError(f"[adc] the first {ADC_K} of k={ADC_K_WIDE} "
+                             f"differ from the k={ADC_K} run")
+    ms, host = time_calls(lambda: adc.adc_topk(luts[:chunk], codes,
+                                               ADC_K_WIDE), hold=True)
+    log(f"[adc] adc_topk k={ADC_K_WIDE} on the first chunk ({chunk} "
+        f"queries): values and ids identical to pq_scan_ref + topk_ref, "
+        f"its first {ADC_K} to the k={ADC_K} run's; {ms:.4f} ms on the "
+        f"device per call ({host:.4f} ms host)")
+    del luts, vals, ids, wv, wi, want_v, want_i
     return counts
 
 

@@ -33,7 +33,7 @@ def pairwise(q: torch.Tensor, x: torch.Tensor, metric: str = L2) -> torch.Tensor
 def brute_force_topk(q: torch.Tensor, x: torch.Tensor, k: int,
                      metric: str = L2, chunk: int = 65536
                      ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Exact top-k nearest neighbours (k <= 64) by a chunked scan over the
+    """Exact top-k nearest neighbours (any k >= 1) by a chunked scan over the
     base set: for each chunk one :func:`ops.bulk_l2` and one
     :func:`ops.topk` (the kernels on the card, their plain versions on the
     CPU), merged into the running best with a stable sort, so ties go to
@@ -62,8 +62,8 @@ def brute_force_topk(q: torch.Tensor, x: torch.Tensor, k: int,
 
 def knn_graph(x: torch.Tensor, k: int, metric: str = L2, chunk_q: int = 1024,
               chunk: int = 65536) -> tuple[torch.Tensor, torch.Tensor]:
-    """Exact k-NN of every point against the dataset, self excluded
-    (k + 1 <= 64): one :func:`brute_force_topk` per ``chunk_q`` rows.
+    """Exact k-NN of every point against the dataset, self excluded: one
+    :func:`brute_force_topk` of k + 1 per ``chunk_q`` rows.
 
     Returns (dists, ids): each (N, k), ascending squared L2.
     """

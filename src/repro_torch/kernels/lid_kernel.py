@@ -1,8 +1,10 @@
 """The batched Hill LID estimate as a hand-written CUDA kernel for Hopper.
 
 Replaces ``repro/kernels/lid_kernel.py::lid_estimate`` (Pallas, TPU).  The
-source is ``repro_torch/csrc/lid_kernel.cu``: one warp per row, sqrt, log,
-mean and reciprocal fused in one pass.  The plain version is
+source is ``repro_torch/csrc/lid_kernel.cu``: whole rows a thread, 32
+consecutive rows a warp, every 16-byte load of a thread's rows in flight
+before their sqrt, log, mean and reciprocal, on a grid of the blocks the
+card holds.  The plain version is
 :func:`repro_torch.kernels.ref.lid_ref`; the device dispatch lives in
 :func:`repro_torch.kernels.ops.lid_estimate`.
 """

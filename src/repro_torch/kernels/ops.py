@@ -42,7 +42,7 @@ def bulk_l2(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 def topk(d: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     """(Q, N) -> ((Q, k) ascending values, (Q, k) int32 ids), ties to the
-    lower id; 1 <= k <= min(64, N) on every device."""
+    lower id; any 1 <= k <= N on every device."""
     if _device(d, "topk").type == "cuda":
         return _topk.topk_cuda(d, k)
     _topk.check_k(k, d.shape[1])

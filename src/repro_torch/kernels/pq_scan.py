@@ -2,9 +2,13 @@
 
 Replaces ``repro/kernels/pq_scan.py::pq_scan`` (Pallas, TPU).  The source is
 ``repro_torch/csrc/pq_scan.cu``: the LUTs of four queries staged in shared
-memory interleaved by query, one code row per thread, the M byte-indexed
-lookups summed in m order (the TPU kernel's one-hot matmul is a workaround
-for serial gathers that Hopper does not need).  The plain version is
+memory as float4 entries, the M byte-indexed lookups of each row summed in m
+order (the TPU kernel's one-hot matmul is a workaround for serial gathers
+that Hopper does not need).  Where M is a multiple of 16 the lanes of each
+quarter-warp run skewed in time, so at every step they look up 8 different
+m, which the layout puts in 8 different shared-memory bank groups: no bank
+conflict whatever the codes.  Other M take a plain one-row-a-thread kernel.
+The plain version is
 :func:`repro_torch.kernels.ref.pq_scan_ref`; the device dispatch lives in
 :func:`repro_torch.kernels.ops.pq_bulk_scan`.
 """

@@ -50,7 +50,7 @@ def adc_topk(luts: torch.Tensor, codes: torch.Tensor,
              k: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Bulk ADC scan + top-k: (Q, M, K) LUTs x (N, M) codes -> ((Q, k)
     ascending distances, (Q, k) int32 ids), ties to the lower id (the
-    reference's ``lax.top_k(-d, k)`` order); 1 <= k <= min(64, N).
+    reference's ``lax.top_k(-d, k)`` order); any 1 <= k <= N.
 
     Queries go in chunks of :func:`query_chunk`, each one
     ``ops.pq_bulk_scan`` and one ``ops.topk``.

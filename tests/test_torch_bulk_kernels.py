@@ -140,13 +140,42 @@ def test_lid_plain_matches_reference_kernel(jx, b, k):
 
 
 def test_topk_bounds_on_every_device():
+    """Any 1 <= k <= N, as the reference's ``topk`` takes (k = 65 and
+    k = N equal the plain version); k = 0 and k > N raise."""
     d = torch.rand(2, 100)
+    d[0, :40] = 0.5                      # ties across the k-th value
+    for k in (65, 100):
+        got_v, got_i = ops.topk(d, k)
+        want_v, want_i = ref.topk_ref(d, k)
+        assert torch.equal(got_v, want_v) and torch.equal(got_i, want_i)
+    assert torch.equal(ops.topk(d, 100)[1][1].sort().values,
+                       torch.arange(100, dtype=torch.int32))
     with pytest.raises(ValueError):
-        ops.topk(d, 65)                  # beyond the reference's k <= 64
+        ops.topk(d, 101)                 # k > N
     with pytest.raises(ValueError):
-        ops.topk(d[:, :5], 6)            # k > N
+        ops.topk(d[:, :5], 6)
     with pytest.raises(ValueError):
         ops.topk(d, 0)
+
+
+@pytest.mark.parametrize("k", [65, 100, 256, 300])
+def test_topk_plain_large_k_matches_reference(jx, k):
+    """k past the warp-select's lists (64, 256) against the reference's
+    oracle, and its Pallas kernel at k = 100 in interpret mode: values
+    bitwise, ids exactly, planted ties included."""
+    jnp = jx["jnp"]
+    rng = np.random.default_rng(k)
+    d = np.concatenate([rng.random((2, 700), np.float32),
+                        _tied_rows(rng, 700, k)])
+    got_v, got_i = ops.topk(T(d), k)
+    wants = [jx["ref"].topk_ref(jnp.asarray(d), k)]
+    if k == 100:
+        wants.append(jx["topk"](jnp.asarray(d[:2]), k, interpret=True))
+    for want_v, want_i in wants:
+        rows = np.asarray(want_v).shape[0]
+        np.testing.assert_array_equal(got_v.numpy()[:rows], np.asarray(want_v))
+        np.testing.assert_array_equal(got_i.numpy()[:rows], np.asarray(want_i))
+    assert all(len(set(r)) == k for r in got_i.numpy().tolist())
 
 
 # --------------------------------------------------- scans vs reference
@@ -162,6 +191,48 @@ def test_brute_force_topk_integer_bit_identical(jx, chunk):
     td, ti = tdist.brute_force_topk(T(q), T(x), 17, chunk=chunk)
     np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
     np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
+
+
+@pytest.mark.parametrize("integer", [True, False])
+def test_brute_force_topk_k100_matches_reference(jx, integer):
+    """Recall@100's ground truth: k = 100 against the reference's
+    ``brute_force_topk``.  Integer data: ids and distances bit-identical.
+    Float data: distances within 1e-4; ids equal in every row without a
+    near-tie (a gap within 1e-4 relative) among its 101 nearest."""
+    jnp = jx["jnp"]
+    rng = np.random.default_rng(26)
+    if integer:
+        x, q = _ints(rng, (900, 6)), _ints(rng, (13, 6))
+    else:
+        x = rng.standard_normal((900, 12), np.float32)
+        q = rng.standard_normal((13, 12), np.float32)
+    jd, ji = jx["distance"].brute_force_topk(jnp.asarray(q), jnp.asarray(x),
+                                             k=100)
+    td, ti = tdist.brute_force_topk(T(q), T(x), 100, chunk=256)
+    assert td.shape == ti.shape == (13, 100)
+    if integer:
+        np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+        np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
+        return
+    np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=1e-4,
+                               atol=1e-4)
+    full = np.sort(((q[:, None, :] - x[None]) ** 2).sum(-1), 1)[:, :101]
+    tie = (np.diff(full, axis=1) <= 1e-4 * full[:, 1:]).any(1)
+    same = (ti.numpy() == np.asarray(ji)).all(1)
+    assert (same | tie).all() and same.sum() >= 10
+
+
+def test_knn_graph_k100_matches_reference(jx):
+    """k = 100 (101 asked for, self dropped) on integer data with
+    duplicates: ids and distances bit-identical to the reference's."""
+    jnp = jx["jnp"]
+    rng = np.random.default_rng(27)
+    x = _ints(rng, (500, 4), -3, 4)
+    jd, ji = jx["distance"].knn_graph(jnp.asarray(x), k=100, chunk_q=128)
+    td, ti = tdist.knn_graph(T(x), 100, chunk_q=96, chunk=160)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
+    assert not (ti.numpy() == np.arange(500)[:, None]).any()
 
 
 def test_knn_graph_integer_with_duplicates(jx):
@@ -439,3 +510,57 @@ def test_topk_kernel_path_shapes_on_card(card, q, n, k):
     assert _count("topk") == before + 1
     assert torch.equal(got_v, want_v)
     assert torch.equal(got_i, want_i)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [65, 100, 101, 256, 257, 2048])
+@pytest.mark.parametrize("q,n", [(6, 5000), (4, 65537), (300, 4099)])
+def test_topk_kernel_large_k_on_card(card, q, n, k):
+    """The 128- and 256-key warp-selects (k = 65-256; 4 rows of 65537 are
+    cut into segments) and the radix select past 256, on planted ties, an
+    all-+inf row, NaN and a descending row: values bitwise, ids equal, one
+    launch counted a call."""
+    g = torch.Generator(device=card).manual_seed(n + k)
+    d = _hard_rows(g, card, q, n, k)
+    before = _count("topk")
+    got_v, got_i = ops.topk(d, k)
+    want_v, want_i = ref.topk_ref(d, k)
+    torch.cuda.synchronize()
+    assert _count("topk") == before + 1
+    assert torch.equal(got_v, want_v)
+    assert torch.equal(got_i, want_i)
+    assert torch.equal(got_i[1], torch.arange(k, device=card,
+                                              dtype=torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 7, 64, 100, 256, 257, 1000, 5001])
+def test_topk_kernel_k_equals_n_on_card(card, n):
+    """k = N on short rows: every entry, in (value, id) order."""
+    g = torch.Generator(device=card).manual_seed(n)
+    d = _hard_rows(g, card, 5, n, n)
+    got_v, got_i = ops.topk(d, n)
+    want_v, want_i = ref.topk_ref(d, n)
+    torch.cuda.synchronize()
+    assert torch.equal(got_v, want_v)
+    assert torch.equal(got_i, want_i)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 16, 20, 33, 100])
+def test_lid_kernel_k_sweep_on_card(card, k):
+    """k = 1 (the -1/4096 cap), 16 (a row in one 16-element pass), 20 and
+    100 (16-byte loads, chunks of 32) and 33 (scalar loads), with zero
+    distances and an all-zero row; rows that start off a 16-byte boundary
+    too: within rtol 1e-4."""
+    g = torch.Generator(device=card).manual_seed(k)
+    d2 = torch.sort(torch.rand((70_001, k), generator=g, device=card) + 0.01,
+                    dim=1).values
+    d2[:100, :max(1, k // 4)] = 0.0
+    d2[100] = 0.0
+    for rows in (d2, d2[1:]):
+        got = ops.lid_estimate(rows)
+        want = ref.lid_ref(rows)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=0)
+    assert float(ops.lid_estimate(d2)[100]) == 4096.0

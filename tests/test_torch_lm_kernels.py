@@ -202,11 +202,50 @@ def test_adc_topk_float(jx):
 
 
 def test_adc_topk_bounds_k():
-    luts, codes = torch.rand(2, 4, 16), torch.zeros(100, 4, dtype=torch.uint8)
+    """Any 1 <= k <= N, as the reference's ``adc_topk`` takes (k = 65 and
+    k = N equal ``pq_scan_ref`` + ``topk_ref``); k = 0 and k > N raise."""
+    g = torch.Generator().manual_seed(5)
+    luts = torch.rand((2, 4, 16), generator=g)
+    codes = torch.randint(0, 16, (100, 4), generator=g).to(torch.uint8)
+    for k in (65, 100):
+        got_v, got_i = tadc.adc_topk(luts, codes, k)
+        want_v, want_i = ref.topk_ref(ref.pq_scan_ref(luts, codes), k)
+        assert torch.equal(got_v, want_v) and torch.equal(got_i, want_i)
     with pytest.raises(ValueError):
-        tadc.adc_topk(luts, codes, 65)
+        tadc.adc_topk(luts, codes, 101)
     with pytest.raises(ValueError):
         tadc.adc_topk(luts, codes, 0)
+
+
+@pytest.mark.parametrize("integer", [True, False])
+def test_adc_topk_k100_matches_reference(jx, integer):
+    """k = 100 against the reference's ``adc_topk``.  Integer LUTs: values
+    and ids identical (ties to the lower id).  Float LUTs: values within
+    1e-5; ids equal in every row without a near-tie among its 101
+    nearest."""
+    jnp = jx["jnp"]
+    rng = np.random.default_rng(12)
+    n, m, kk, q, k = 1500, 16, 256, 6, 100
+    codes = rng.integers(0, kk, (n, m)).astype(np.uint8)
+    if integer:
+        luts = rng.integers(0, 4, (q, m, kk)).astype(np.float32)
+    else:
+        luts = rng.random((q, m, kk), dtype=np.float32)
+    gv, gi = tadc.adc_topk(T(luts), T(codes), k)
+    wv, wi = jx["adc"].adc_topk(jnp.asarray(luts), jnp.asarray(codes), k)
+    assert gv.shape == gi.shape == (q, k)
+    if integer:
+        assert np.array_equal(gv.numpy(), np.asarray(wv))
+        assert np.array_equal(gi.numpy(), np.asarray(wi))
+        return
+    np.testing.assert_allclose(gv.numpy(), np.asarray(wv), rtol=1e-5,
+                               atol=1e-5)
+    d = np.sort(np.asarray(jx["adc"].adc_distances(jnp.asarray(luts),
+                                                   jnp.asarray(codes))), 1)
+    gap = np.diff(d[:, :k + 1], axis=1)
+    tie = (gap <= 1e-5 * d[:, 1:k + 1]).any(1)
+    same = (gi.numpy() == np.asarray(wi)).all(1)
+    assert (same | tie).all()
 
 
 # ----------------------------------------------------------- dispatch
@@ -430,3 +469,48 @@ def test_decode_attention_kernel_holds_large_logits_on_card(card):
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, rtol=3e-4, atol=3e-4)
     assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q", [1, 5, 256])
+@pytest.mark.parametrize("m", [8, 16, 64])
+@pytest.mark.parametrize("kk", [16, 256])
+def test_pq_scan_kernel_sweep_on_card(card, kk, m, q):
+    """K = 16 / 256; M = 8 (the plain kernel), 16 (one pass of the skewed
+    walk) and 64 (four passes, a row's sum stored and read back between
+    them); Q = 1 / 5 / 256 (partial groups of 4); N = 3001, not a multiple
+    of a block's rows; random codes with all-zero rows: bit for bit on
+    integer LUTs, within 1e-5 on float LUTs."""
+    n = 3001
+    g = torch.Generator(device=card).manual_seed(kk * m + q)
+    codes = torch.randint(0, kk, (n, m), generator=g, device=card,
+                          dtype=torch.uint8)
+    codes[:37] = 0
+    luts_i = torch.randint(-64, 64, (q, m, kk), generator=g,
+                           device=card).float()
+    luts_f = torch.rand((q, m, kk), generator=g, device=card)
+    before = _count("pq_scan")
+    got_i, got_f = ops.pq_bulk_scan(luts_i, codes), ops.pq_bulk_scan(luts_f,
+                                                                     codes)
+    want_i, want_f = ref.pq_scan_ref(luts_i, codes), ref.pq_scan_ref(luts_f,
+                                                                    codes)
+    torch.cuda.synchronize()
+    assert _count("pq_scan") == before + 2
+    assert torch.equal(got_i, want_i)
+    torch.testing.assert_close(got_f, want_f, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_adc_topk_k100_on_card_matches_cpu(card):
+    """Recall@100's k through ``pq_scan`` and ``topk`` on the card, equal
+    to the plain path on the CPU on integer LUTs."""
+    g = torch.Generator().manual_seed(4)
+    codes = torch.randint(0, 256, (50_000, 16), generator=g).to(torch.uint8)
+    luts = torch.randint(0, 16, (10, 16, 256), generator=g).float()
+    before = ops.launch_counts()
+    gv, gi = tadc.adc_topk(luts.to(card), codes.to(card), 100)
+    after = ops.launch_counts()
+    cv, ci = tadc.adc_topk(luts, codes, 100)
+    assert after["pq_scan"] - before["pq_scan"] == 1
+    assert after["topk"] - before["topk"] == 1
+    assert torch.equal(gv.cpu(), cv) and torch.equal(gi.cpu(), ci)
