@@ -74,6 +74,20 @@ Phases, each printed on its own lines; any failure exits non-zero:
    ``topk_ref`` on the same LUTs, values and ids; then, after the counts
    are read, ``adc_topk(k=100)`` over the first chunk, held to the plain
    versions and to the k=10 run, and timed;
+3d. [disk] the disk-resident slow tier at the same 1M index and stream:
+   ``open_or_build_slow_tier`` writes the node-order block store (1 KiB
+   records) to a temporary directory (removed when the phase ends) and
+   serves the stream through ``TieredBackend(slow_tier=...)`` pipelined
+   (the engine's prefetch stage) and per batch; the same store with a
+   65,536-node hot tier for two pipelined passes (promotions drained
+   between them; the second open must reuse the store, mtime unchanged);
+   a store packed by ``block_layout(nodes_per_block=4)`` (four records a
+   4 KiB page); and ``save_index(version=2)`` + ``load_index`` on the card
+   (every array equal) served through ``load_slow_tier``.  Every run's ids
+   and d2 must equal the in-memory tiered run's bit for bit; each prints
+   QPS, batch p50 / p99, recall@10, hit rate, blocks read, I/O blocks per
+   query, measured read us and fetch p50 / p99 (reads from the OS page
+   cache, not an SSD); fails unless ``beam_step`` [pq] launched there;
 4. the LM paths, with the MCGI world freed — qwen2-7b at full width
    (``repro_torch/configs/qwen2_7b.py``: 28 layers, d_model 3584, 28 query
    and 4 KV heads, d_ff 18944, vocab 152064, QKV bias), weights drawn from
@@ -975,9 +989,10 @@ def trace_report(prof, wall_ms: float, path: str) -> str:
 
 
 def serve_run(name, engine, batches, gts, n, pipelined: bool,
-              trace: bool = False):
+              trace: bool = False, keep: list | None = None):
     """Serve ``batches``; return the printed metrics.  ``trace``: profile
-    the first batch (see :func:`trace_report`)."""
+    the first batch (see :func:`trace_report`); ``keep`` collects the
+    results."""
     import numpy as np
     import torch
 
@@ -1017,6 +1032,8 @@ def serve_run(name, engine, batches, gts, n, pipelined: bool,
         hops.append(float(np.mean(res.stats.hops)))
         if res.astats is not None:
             budgets.append(float(np.mean(res.astats.budget)))
+        if keep is not None:
+            keep.append(res)
         t0 = time.perf_counter()
     total = time.perf_counter() - t_all
     after = ops.launch_counts()
@@ -1306,6 +1323,182 @@ def adc_path(world) -> dict:
         f"its first {ADC_K} to the k={ADC_K} run's; {ms:.4f} ms on the "
         f"device per call ({host:.4f} ms host)")
     del luts, vals, ids, wv, wi, want_v, want_i
+    return counts
+
+
+# --------------------------------------------------------------- phase 3d
+
+def disk_served(name, engine, tier, world, want, pipelined: bool) -> dict:
+    """Serve phase 3's stream with the slow tier on disk; every batch's ids
+    and d2 must equal the in-memory tiered run's bit for bit.  Prints the
+    serving metrics and the tier's measured figures."""
+    import numpy as np
+
+    tier.reset_stats()
+    got: list = []
+    m = serve_run(name, engine, world["batches"], world["gts"], world["n"],
+                  pipelined, keep=got)
+    for bi, (g, w) in enumerate(zip(got, want)):
+        if not (np.array_equal(g.ids, w.ids) and np.array_equal(g.d2, w.d2)):
+            raise AssertionError(f"[disk] {name}: batch {bi} differs from "
+                                 f"the in-memory tiered run")
+    st, lat = tier.stats(), tier.fetch_latency_us()
+    nq = sum(b.shape[0] for b in world["batches"])
+    m.update(st, **lat, io_blocks_per_query=st["io_blocks"] / nq,
+             fetch_share=lat["fetch_p50_us"] / 1e3 / m["p50_ms"])
+    log(f"[disk] {name}: ids and d2 bit-identical to the in-memory tiered "
+        f"run; qps={m['qps']:.1f} batch p50={m['p50_ms']:.2f}ms "
+        f"p99={m['p99_ms']:.2f}ms recall@10={m['recall']:.4f} "
+        f"hit_rate={st['hit_rate']:.4f} blocks_read={st['blocks_read']} "
+        f"io_blocks/query={m['io_blocks_per_query']:.2f} "
+        f"measured_read_us={st['measured_read_us']:.3f} "
+        f"fetch p50={lat['fetch_p50_us']:.0f}us "
+        f"p99={lat['fetch_p99_us']:.0f}us ({lat['fetch_samples']} fetches; "
+        f"fetch p50 / batch p50 = {m['fetch_share']:.3f}); reads come from "
+        "the OS page cache (the store was just written), not SSD latencies")
+    return m
+
+
+def disk_path(world) -> dict:
+    """The disk-resident slow tier at phase 3's 1M index: stores written to
+    a temporary directory, the stream served pipelined and per batch, with a
+    hot tier, from a packed store, and from a saved and reloaded v2 index,
+    each bit-identical to the in-memory tiered run.  Returns the launch
+    counts of the disk runs."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch import serving
+    from repro_torch.core import build
+    from repro_torch.index import (load_index, load_slow_tier,
+                                   open_or_build_slow_tier, save_index)
+    from repro_torch.index.serializer import blocks_path
+    from repro_torch.kernels import ops
+
+    cfg = sift1m()
+    index = world["tiered"].index
+    budget = cfg.beam_budget()
+    want: list = []
+    mem = serve_run("in-memory tiered adaptive pipelined (the [disk] "
+                    "reference)", serving.SearchEngine(world["tiered"],
+                                                       budget, k=cfg.k),
+                    world["batches"], world["gts"], world["n"], True,
+                    keep=want)
+    tmp = tempfile.mkdtemp(prefix="mcgi-disk-")
+    log(f"[disk] stores in {tmp} (removed when the phase ends)")
+    tiers = []
+
+    def tier_engine(tier, idx=index):
+        tiers.append(tier)
+        return serving.SearchEngine(
+            serving.TieredBackend(idx, slow_tier=tier, device=idx.device),
+            budget, k=cfg.k)
+
+    def disk_log(msg):
+        log(f"[disk] {msg}")
+
+    try:
+        ops.reset_launch_counts()
+        runs = {}
+        node_path = os.path.join(tmp, "sift1m.blocks")
+        t0 = time.perf_counter()
+        tier = open_or_build_slow_tier(node_path, index, cache_nodes=4096,
+                                       pin_nodes=256, log=disk_log)
+        secs = time.perf_counter() - t0
+        size = os.path.getsize(node_path)
+        log(f"[disk] node-order store: {size} bytes "
+            f"({tier.store.block_size} B records, {tier.store.n} nodes) "
+            f"written and opened in {secs:.2f}s; cache_nodes=4096 "
+            f"pin_nodes=256")
+        eng = tier_engine(tier)
+        eng.search(world["qn"][:64])                       # warm-up
+        runs["pipelined"] = disk_served("node order, pipelined", eng, tier,
+                                        world, want, True)
+        runs["per_batch"] = disk_served("node order, per batch", eng, tier,
+                                        world, want, False)
+        mtime = os.stat(node_path).st_mtime_ns
+        hot = open_or_build_slow_tier(node_path, index, cache_nodes=4096,
+                                      pin_nodes=256, hot_nodes=65536,
+                                      log=disk_log)
+        if os.stat(node_path).st_mtime_ns != mtime:
+            raise AssertionError("[disk] a second open_or_build_slow_tier "
+                                 "rewrote the store")
+        log("[disk] second open_or_build_slow_tier on the same path reused "
+            "the store (mtime unchanged)")
+        eng = tier_engine(hot)
+        for p in (1, 2):
+            runs[f"hot_pass{p}"] = disk_served(
+                f"hot tier 65536, pass {p}, pipelined", eng, hot, world,
+                want, True)
+            hot.drain_promotions()
+            st = hot.stats()
+            log(f"[disk] hot tier after pass {p}: resident "
+                f"{st['hot_nodes']}/{st['hot_capacity']} hot_hits="
+                f"{st['hot_hits']} promotions={st['promotions']} "
+                f"demotions={st['demotions']} ticks={st['promotion_ticks']} "
+                f"promotion_io_blocks={st['promotion_io_blocks']}")
+        t0 = time.perf_counter()
+        slot_of = build.block_layout(index.graph, nodes_per_block=4)
+        t_layout = time.perf_counter() - t0
+        packed_path = os.path.join(tmp, "sift1m-packed.blocks")
+        t0 = time.perf_counter()
+        packed = open_or_build_slow_tier(packed_path, index,
+                                         cache_nodes=4096, pin_nodes=256,
+                                         nodes_per_block=4, slot_of=slot_of,
+                                         log=disk_log)
+        log(f"[disk] block_layout (greedy_block_pack, 4 x 1 KiB records a "
+            f"4 KiB page) in {t_layout:.2f}s; packed store "
+            f"{os.path.getsize(packed_path)} bytes written in "
+            f"{time.perf_counter() - t0:.2f}s")
+        runs["packed"] = disk_served("packed 4 a page, pipelined",
+                                     tier_engine(packed), packed, world,
+                                     want, True)
+        log(f"[disk] io_blocks/query: node order "
+            f"{runs['pipelined']['io_blocks_per_query']:.2f}, packed "
+            f"{runs['packed']['io_blocks_per_query']:.2f}")
+        os.remove(packed_path)
+        npz = os.path.join(tmp, "sift1m.npz")
+        t0 = time.perf_counter()
+        save_index(npz, index, version=2)
+        t_save = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = load_index(npz, device=index.device)
+        t_load = time.perf_counter() - t0
+        for name, a, b in (
+                ("adj", index.graph.adj, loaded.graph.adj),
+                ("entry", index.graph.entry, loaded.graph.entry),
+                ("alpha", index.graph.alpha, loaded.graph.alpha),
+                ("lid", index.graph.lid, loaded.graph.lid),
+                ("mu", index.graph.mu, loaded.graph.mu),
+                ("sigma", index.graph.sigma, loaded.graph.sigma),
+                ("centroids", index.codebook.centroids,
+                 loaded.codebook.centroids),
+                ("codes", index.codes, loaded.codes),
+                ("vectors", index.vectors, loaded.vectors)):
+            if a.dtype != b.dtype or not torch.equal(a, b):
+                raise AssertionError(f"[disk] v2 round trip changed {name}")
+        log(f"[disk] save_index(version=2): npz "
+            f"{os.path.getsize(npz)} bytes + sidecar "
+            f"{os.path.getsize(blocks_path(npz))} bytes in {t_save:.2f}s; "
+            f"load_index on the card in {t_load:.2f}s: every array equal")
+        v2_tier = load_slow_tier(npz)
+        runs["v2"] = disk_served("load_slow_tier of the v2 index, pipelined",
+                                 tier_engine(v2_tier, loaded), v2_tier,
+                                 world, want, True)
+        counts = ops.launch_counts()
+    finally:
+        for t in tiers:
+            t.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[disk] in-memory qps {mem['qps']:.1f} against disk-served "
+        f"pipelined {runs['pipelined']['qps']:.1f} and per batch "
+        f"{runs['per_batch']['qps']:.1f}; kernel launches on the disk "
+        f"path: { {k: v for k, v in counts.items() if v} }")
+    if counts["beam_step.pq"] == 0:
+        raise AssertionError("[disk] beam_step.pq was never launched on the "
+                             "disk path")
     return counts
 
 
@@ -1622,6 +1815,7 @@ def main(argv=None) -> int:
                                      trace=args.trace_first_batch)
     paths["calibration"] = calibration_path(world)
     paths["adc"] = adc_path(world)
+    paths["disk"] = disk_path(world)
     del world
     torch.cuda.empty_cache()
     lm_counts, attn_err = lm_paths(dev, args.seed)

@@ -22,6 +22,7 @@ import dataclasses
 import time
 from typing import Callable
 
+import numpy as np
 import torch
 
 from repro_torch import resolve_device
@@ -241,3 +242,12 @@ def build_vamana(x, alpha: float = 1.2, cfg: BuildConfig = BuildConfig(),
     return GraphIndex(adj=adj, entry=search_mod.medoid(x), alpha=alpha_arr,
                       lid=torch.zeros((n,), dtype=torch.float32, device=dev),
                       mu=zero, sigma=zero.clone())
+
+
+def block_layout(graph: GraphIndex, nodes_per_block: int) -> np.ndarray:
+    """Build-time block-aware record layout for the on-disk store: the
+    ``slot_of`` permutation of :func:`repro_torch.core.prune
+    .greedy_block_pack` over the built graph, for
+    ``write_block_store(..., nodes_per_block=, slot_of=)``."""
+    return prune_mod.greedy_block_pack(graph.adj.cpu().numpy(),
+                                       int(graph.entry), nodes_per_block)

@@ -93,3 +93,68 @@ def robust_prune_batch(x, node_ids, cand_ids, alpha, degree: int):
            + sq[:, None, :]).clamp_min(0.0)
     ids = torch.where(bad, INVALID, cand_ids)
     return robust_prune_one(ids, d2, pd2, alpha, degree)
+
+
+def greedy_block_pack(adj, entry: int, nodes_per_block: int):
+    """Block-aware slot assignment: co-locate each node's record with its
+    nearest pruned out-neighbours, so one I/O-block read covers a hop's
+    expansions (the reference's layout, the same permutation).
+
+    Nodes are visited in BFS order from the entry point, and every
+    still-unassigned node opens a group: itself plus its nearest unassigned
+    out-neighbours (adjacency rows are distance-ascending out of the prune),
+    capped at the current I/O block's remaining capacity, so a group never
+    straddles a block.  Unreachable nodes follow in id order.
+
+    Host numpy.  The BFS runs a level at a time: a level's rows flattened in
+    order, with the first occurrence of each new id kept, is the order a
+    queue BFS discovers them in.  Returns ``slot_of``: (N,) int64, node id
+    -> record slot, the form
+    :func:`repro_torch.index.blockstore.write_block_store` takes.
+    """
+    import numpy as np
+
+    adj = np.asarray(adj)
+    n = adj.shape[0]
+    npb = int(nodes_per_block)
+    if npb <= 1:
+        return np.arange(n, dtype=np.int64)
+
+    seen = np.zeros(n, dtype=bool)
+    seen[int(entry)] = True
+    levels = [np.asarray([int(entry)], np.int64)]
+    frontier = levels[0]
+    while frontier.size:
+        flat = adj[frontier].ravel().astype(np.int64)
+        flat = flat[flat >= 0]
+        flat = flat[~seen[flat]]
+        _, first = np.unique(flat, return_index=True)
+        frontier = flat[np.sort(first)]
+        seen[frontier] = True
+        levels.append(frontier)
+    levels.append(np.flatnonzero(~seen))
+    order = np.concatenate(levels)
+
+    slot_of = np.empty(n, dtype=np.int64)
+    assigned = np.zeros(n, dtype=bool)
+    next_slot = 0
+    for u in order.tolist():
+        if assigned[u]:
+            continue
+        group = [u]
+        assigned[u] = True
+        capacity = npb - (next_slot % npb)
+        if capacity > 1:
+            row = adj[u]
+            row = row[row >= 0]
+            for v in row[~assigned[row]].tolist():
+                if len(group) >= capacity:
+                    break
+                if not assigned[v]:       # a row may repeat an id
+                    group.append(v)
+                    assigned[v] = True
+        for g in group:
+            slot_of[g] = next_slot
+            next_slot += 1
+    assert next_slot == n
+    return slot_of

@@ -30,5 +30,9 @@ class GraphIndex:
     def device(self) -> torch.device:
         return self.adj.device
 
+    @property
+    def degree_cap(self) -> int:
+        return self.adj.shape[1]
+
     def out_degrees(self) -> torch.Tensor:
         return (self.adj != -1).sum(1)

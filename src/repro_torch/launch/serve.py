@@ -7,20 +7,28 @@ recall@k, QPS, batch latency, mean budget and walk hops.
         [--backend tiered|exact] [--adaptive [--l-min 16] [--l-max 64] \\
          [--lam 0.35] [--buckets auto] [--pipeline] \\
          [--calibrate [--joint] [--recall-target 0.95] [--calib-sample 256]]] \\
-        [--filter-frac F]
+        [--filter-frac F] [--index I] [--disk D [--cache-nodes 4096] \\
+         [--pin-nodes 256] [--hot-nodes 0 [--hot-chunk 256] \\
+         [--freq-decay 0.5]] [--io-workers W]]
 
-In-memory modes only: fixed beam, ``--adaptive`` (probe -> budget ->
+Modes: fixed beam, ``--adaptive`` (probe -> budget ->
 bucketed continue -> rerank), ``--buckets``, ``--pipeline`` (the
 double-buffered stream), ``--calibrate`` (fit ``lam``, and ``hop_factor``
 where it binds, to ``--recall-target`` on a held-out sample before serving;
 ``--joint`` fits ``l_min`` too) and ``--filter-frac`` (per-query namespaces
-enforced in-graph).  ``--device cuda`` (default) runs the walk's hops
+enforced in-graph).  ``--index I`` loads the index from I, or builds it
+and saves it there; ``--disk D`` serves the tiered backend's slow tier from
+a block store at D (written first when absent, unreadable or stale; the
+same results, real block reads, a prefetch stage in the adaptive
+pipeline) and ends with a ``[serve] disk tier:`` line of measured cache and
+read figures.  ``--device cuda`` (default) runs the walk's hops
 through the hand-written CUDA kernel; ``--device cpu`` runs the plain
 PyTorch hop.
 """
 from __future__ import annotations
 
 import argparse
+import pathlib
 import time
 
 import numpy as np
@@ -36,6 +44,27 @@ def buckets_arg(value: str):
     except ValueError:
         raise argparse.ArgumentTypeError(
             f"expected 'auto' or an integer, got {value!r}")
+
+
+def _report_disk_tier(backend, model) -> None:
+    """Measured slow-tier figures beside the DiskTierModel's modelled read
+    latency (the stats stay readable after the engine is closed)."""
+    st = backend.slow_tier.stats()
+    lat = backend.slow_tier.fetch_latency_us()
+    print(f"[serve] disk tier: hit_rate={st['hit_rate']:.3f} "
+          f"(hits={st['cache_hits']} misses={st['cache_misses']}) "
+          f"blocks_read={st['blocks_read']} "
+          f"measured_read={st['measured_read_us']:.1f}us vs "
+          f"modelled={model.read_latency_us:.1f}us "
+          f"fetch p50={lat['fetch_p50_us']:.0f}us "
+          f"p99={lat['fetch_p99_us']:.0f}us")
+    if "hot_capacity" in st:
+        print(f"[serve] hot tier: resident={st['hot_nodes']}"
+              f"/{st['hot_capacity']} hot_hits={st['hot_hits']} "
+              f"promotions={st['promotions']} "
+              f"demotions={st['demotions']} "
+              f"ticks={st['promotion_ticks']} "
+              f"promotion_io_blocks={st['promotion_io_blocks']}")
 
 
 def main(argv=None) -> None:
@@ -73,7 +102,28 @@ def main(argv=None) -> None:
     ap.add_argument("--filter-frac", type=float, default=None, metavar="F",
                     help="split the corpus into ~1/F namespaces and enforce "
                          "each query's namespace in-graph")
+    ap.add_argument("--index", default=None,
+                    help="load the index from this path, or build it and "
+                         "save it there")
+    ap.add_argument("--disk", default=None, metavar="PATH",
+                    help="serve the slow tier from a block store at PATH "
+                         "(written there first if absent or stale)")
+    ap.add_argument("--cache-nodes", type=int, default=4096,
+                    help="with --disk: record LRU capacity")
+    ap.add_argument("--pin-nodes", type=int, default=256,
+                    help="with --disk: pinned entry-proximal nodes (0: none)")
+    ap.add_argument("--hot-nodes", type=int, default=0,
+                    help="with --disk: hot-tier capacity (0 disables it)")
+    ap.add_argument("--hot-chunk", type=int, default=256,
+                    help="with --hot-nodes: most promotions per tick")
+    ap.add_argument("--freq-decay", type=float, default=0.5,
+                    help="with --hot-nodes: per-tick decay of the access "
+                         "frequencies")
+    ap.add_argument("--io-workers", type=int, default=None,
+                    help="with --disk: prefetch worker threads (default 1)")
     args = ap.parse_args(argv)
+    if args.disk and args.backend != "tiered":
+        ap.error("--disk serves the tiered backend's slow tier")
     if not args.adaptive and (args.calibrate or args.pipeline
                               or (args.buckets != "auto"
                                   and args.buckets > 1)):
@@ -87,22 +137,32 @@ def main(argv=None) -> None:
     from repro_torch import serving
     from repro_torch.core import build, distance, search
     from repro_torch.data import make_dataset
-    from repro_torch.index import build_tiered_index
+    from repro_torch.index import (DiskTierModel, build_tiered_index,
+                                   load_index, open_or_build_slow_tier,
+                                   save_index)
 
     dev = args.device
     x, queries = make_dataset(args.dataset, seed=args.seed, device=dev,
                               n=args.n)
-    cfg = build.BuildConfig(degree=args.degree, beam_width=args.l_build,
-                            batch=args.build_batch)
-    t0 = time.time()
-    timings: dict = {}
-    graph = build.build_mcgi(x, cfg, progress=print, device=dev,
-                             timings=timings)
-    index = build_tiered_index(x, graph, m_pq=args.m_pq, device=dev)
-    print(f"[serve] built index in {time.time() - t0:.1f}s (n={index.n}, "
-          + " ".join(f"{k}={v:.1f}s" for k, v in timings.items())
-          + f"; fast tier {index.fast_tier_bytes() / 1e6:.1f}MB, "
-          f"slow tier {index.slow_tier_bytes() / 1e6:.1f}MB)")
+    if args.index and pathlib.Path(args.index).exists():
+        index = load_index(args.index, device=dev)
+        graph = index.graph
+        print(f"[serve] loaded index: n={index.n}")
+    else:
+        cfg = build.BuildConfig(degree=args.degree, beam_width=args.l_build,
+                                batch=args.build_batch)
+        t0 = time.time()
+        timings: dict = {}
+        graph = build.build_mcgi(x, cfg, progress=print, device=dev,
+                                 timings=timings)
+        index = build_tiered_index(x, graph, m_pq=args.m_pq, device=dev)
+        print(f"[serve] built index in {time.time() - t0:.1f}s "
+              f"(n={index.n}, "
+              + " ".join(f"{k}={v:.1f}s" for k, v in timings.items())
+              + f"; fast tier {index.fast_tier_bytes() / 1e6:.1f}MB, "
+              f"slow tier {index.slow_tier_bytes() / 1e6:.1f}MB)")
+        if args.index:
+            save_index(args.index, index)
     _, gt_i = distance.brute_force_topk(queries, x, k=args.k)
 
     budget_cfg = None
@@ -110,8 +170,21 @@ def main(argv=None) -> None:
         l_max = args.l_max or args.beam
         budget_cfg = search.AdaptiveBeamBudget(
             l_min=min(args.l_min, l_max), l_max=l_max, lam=args.lam)
+    slow_tier = None
+    if args.disk:
+        slow_tier = open_or_build_slow_tier(
+            args.disk, index, cache_nodes=args.cache_nodes,
+            pin_nodes=args.pin_nodes, io_workers=args.io_workers,
+            hot_nodes=args.hot_nodes, hot_chunk=args.hot_chunk,
+            freq_decay=args.freq_decay, log=lambda m: print(f"[serve] {m}"))
+        hot_part = (f" hot={args.hot_nodes} (chunk={args.hot_chunk} "
+                    f"decay={args.freq_decay})" if args.hot_nodes else "")
+        print(f"[serve] disk slow tier: n={slow_tier.store.n} "
+              f"block={slow_tier.store.block_size}B "
+              f"pinned={slow_tier.stats()['pinned_nodes']}" + hot_part)
     if args.backend == "tiered":
-        backend = serving.TieredBackend(index, device=dev)
+        backend = serving.TieredBackend(index, slow_tier=slow_tier,
+                                        device=dev)
     else:
         backend = serving.ExactBackend(x, graph.adj, graph.entry, device=dev)
     engine = serving.SearchEngine(backend, budget_cfg, k=args.k,
@@ -199,6 +272,9 @@ def main(argv=None) -> None:
     if masks is not None:
         print(f"[serve] filter enforcement: out_of_filter={out_of_filter} "
               f"(in-graph, must be 0)")
+    engine.close()
+    if args.disk:
+        _report_disk_tier(backend, DiskTierModel())
 
 
 if __name__ == "__main__":

@@ -1,6 +1,6 @@
 """The serving engine: one API over the exact and tiered backends, with a
 staged double-buffered batch pipeline (port of :mod:`repro.serving.engine`,
-in-memory backends).
+without the out-of-core and distributed backends).
 
 * :class:`SearchEngine` wraps a backend behind ``search`` (one batch) and
   ``search_batches`` (a stream, double-buffered).
@@ -10,6 +10,13 @@ in-memory backends).
   are identical to the unpipelined path: the same programs on the same
   inputs, only the order of dispatch moves.
 * Fixed-beam serving runs one walk per batch.
+* Disk slow tier: a :class:`TieredBackend` over a
+  :class:`repro_torch.index.disk.BlockSlowTier` serves the rerank's fetch
+  from the block store on the host, and the pipeline grows a third stage,
+  *prefetch*, between continue and gather: batch i's block reads run on the
+  tier's worker thread while batch i+1's walk runs on the card.  Each gather
+  then kicks one non-blocking promotion tick of the tier's hot tier, and
+  the tier's counters ride in ``BatchResult.extras["slow_tier"]``.
 
 On the card every stage runs on the engine's own CUDA stream, and each
 flight records an event after its device work; the gather waits on it
@@ -29,6 +36,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import threading
 from typing import Any, Callable, Iterable, Iterator
 
 import numpy as np
@@ -51,6 +59,17 @@ class BatchResult:
     astats: search_mod.AdaptiveStats | None = None
     ceilings: tuple[int, ...] | None = None   # bucket family actually used
     extras: dict[str, Any] = dataclasses.field(default_factory=dict)
+
+
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    """Whether two devices are one ("cuda" names the current card)."""
+    if a.type != b.type:
+        return False
+    if a.type != "cuda":
+        return True
+    cur = torch.cuda.current_device()
+    return (cur if a.index is None else a.index) == (
+        cur if b.index is None else b.index)
 
 
 def _host_stats(stats):
@@ -80,7 +99,17 @@ def _split_result(res: BatchResult, sizes: list[int]) -> list[BatchResult]:
 
 
 class _StagedRerankMixin:
-    """Shared staged-protocol tail of the single-host backends."""
+    """Shared staged-protocol tail of the single-host backends.  The
+    defaults are those of a backend without a disk tier: no prefetch stage,
+    no promotion tick, nothing to close."""
+
+    prefetches = False
+
+    def promotion_tick(self):
+        return None
+
+    def close(self) -> None:
+        pass
 
     def schedule_budgets(self, budgets_np: np.ndarray) -> np.ndarray:
         return budgets_np
@@ -91,19 +120,27 @@ class _StagedRerankMixin:
         beam_ids, beam_d, _exp, _visited, hops, evals = probe_state
         return beam_ids, beam_d, hops, evals
 
-    def finish(self, queries, parts, k: int, *, q_lid,
-               budgets_np) -> BatchResult:
+    def finish_extras(self) -> dict[str, Any]:
+        """Per-batch observability payload (backends override)."""
+        return {}
+
+    def finish(self, queries, parts, k: int, *, q_lid, budgets_np,
+               prefetch=None) -> BatchResult:
+        """Rerank the gathered continue ``parts`` into the final top-k;
+        ``prefetch`` is the disk tier's fetch future when the pipeline's
+        prefetch stage ran."""
         beam_ids, beam_d, hops, evals = parts
         ids, d2 = self.rerank(torch.as_tensor(beam_ids, device=self.device),
                               torch.as_tensor(beam_d, device=self.device),
-                              queries, k)
+                              queries, k, prefetch=prefetch)
         return BatchResult(
             ids=ids.cpu().numpy(), d2=d2.cpu().numpy(),
             stats=search_mod.SearchStats(hops=np.asarray(hops),
                                          dist_evals=np.asarray(evals)),
             astats=search_mod.AdaptiveStats(
                 q_lid=torch.as_tensor(q_lid).cpu().numpy(),
-                budget=budgets_np))
+                budget=budgets_np),
+            extras=self.finish_extras())
 
 
 class ExactBackend(_StagedRerankMixin):
@@ -138,7 +175,7 @@ class ExactBackend(_StagedRerankMixin):
                                               budget_cfg)
         return cont
 
-    def rerank(self, beam_ids, beam_d, queries, k: int):
+    def rerank(self, beam_ids, beam_d, queries, k: int, prefetch=None):
         return beam_ids[:, :k], beam_d[:, :k]
 
     def recall_eval(self, queries, gt_ids, *, k, sample, seed, base_cfg):
@@ -156,21 +193,59 @@ class ExactBackend(_StagedRerankMixin):
 
 class TieredBackend(_StagedRerankMixin):
     """The deployed two-tier path: PQ codes route the walk (fast tier) and
-    the final beam is reranked from full-precision rows (slow tier, here in
-    device memory).  ``rerank=False`` serves raw ADC results."""
+    the final beam is reranked from full-precision rows (slow tier).
+    ``rerank=False`` serves raw ADC results.
 
-    def __init__(self, index: disk_mod.TieredIndex, rerank: bool = True, *,
-                 device="cuda"):
+    ``slow_tier`` plugs the rerank's fetch: ``None`` keeps the device rows
+    of ``index.vectors``; a :class:`repro_torch.index.disk.BlockSlowTier`
+    serves them from the block store on the host instead (the rerank's
+    arithmetic stays the same, so results are bit-identical), and sets
+    :attr:`prefetches`, which adds the engine's prefetch stage."""
+
+    _UNSET = object()
+
+    def __init__(self, index: disk_mod.TieredIndex, rerank: bool = True,
+                 slow_tier=None, *, device="cuda"):
         self.device = resolve_device(device)
         self.do_rerank = rerank
-        self.update(index)
+        self.slow_tier = None
+        self.update(index, slow_tier=slow_tier)
 
-    def update(self, index: disk_mod.TieredIndex) -> None:
-        """Swap the tiered index in place (index refresh path)."""
-        if index.device != self.device:
+    def update(self, index: disk_mod.TieredIndex, slow_tier=_UNSET) -> None:
+        """Swap the tiered index (and the slow tier) in place.  A
+        disk-backed backend refuses a refresh that does not name its slow
+        tier (the old store holds the old vectors); a replaced disk tier is
+        closed."""
+        if not _same_device(index.device, self.device):
             raise ValueError(f"index lives on {index.device}, backend on "
                              f"{self.device}")
+        if slow_tier is TieredBackend._UNSET:
+            if self._disk:
+                raise ValueError(
+                    "this backend serves its slow tier from a block store; "
+                    "refresh with update(index, slow_tier=...) — a "
+                    "BlockSlowTier over a store written from the new "
+                    "vectors, or None to return to in-memory rows")
+            slow_tier = None
+        old = self.slow_tier
         self.index = index
+        self.slow_tier = slow_tier
+        if old is not None and old is not slow_tier and old.is_disk:
+            old.close()
+
+    @property
+    def _disk(self) -> bool:
+        return self.slow_tier is not None and self.slow_tier.is_disk
+
+    def close(self) -> None:
+        """Shut down a disk slow tier's threads (idempotent)."""
+        if self._disk:
+            self.slow_tier.close()
+
+    @property
+    def prefetches(self) -> bool:
+        """Whether the rerank's fetch is worth hiding behind device work."""
+        return self.do_rerank and self._disk
 
     def num_nodes(self) -> int:
         return int(self.index.codes.shape[0])
@@ -191,11 +266,30 @@ class TieredBackend(_StagedRerankMixin):
                                            budget_cfg)
         return cont
 
-    def rerank(self, beam_ids, beam_d, queries, k: int):
+    def prefetch_rerank(self, parts):
+        """Submit the block fetch of the gathered continue ``parts``
+        (beam ids first, host numpy) to the tier's worker pool."""
+        return self.slow_tier.prefetch(np.asarray(parts[0]))
+
+    def rerank(self, beam_ids, beam_d, queries, k: int, prefetch=None):
         if not self.do_rerank:
             return beam_ids[:, :k], beam_d[:, :k]
         q = torch.as_tensor(queries, dtype=torch.float32, device=self.device)
-        return search_mod._rerank_slow_tier(beam_ids, self.index.vectors, q, k)
+        if self.prefetches:
+            return disk_mod.rerank_with_slow_tier(
+                self.slow_tier, beam_ids, q, k,
+                prefetched=None if prefetch is None else prefetch.result())
+        x_slow = (self.slow_tier.vectors if self.slow_tier is not None
+                  else self.index.vectors)
+        return search_mod._rerank_slow_tier(beam_ids, x_slow, q, k)
+
+    def finish_extras(self) -> dict[str, Any]:
+        return {"slow_tier": self.slow_tier.stats()} if self._disk else {}
+
+    def promotion_tick(self):
+        """Kick one hot-tier promotion round on the disk tier's promoter
+        thread (non-blocking; None without a disk or hot tier)."""
+        return self.slow_tier.promotion_tick() if self._disk else None
 
     def recall_eval(self, queries, gt_ids, *, k, sample, seed, base_cfg):
         return calib.tiered_recall_eval(
@@ -204,6 +298,15 @@ class TieredBackend(_StagedRerankMixin):
 
     def fixed(self, queries, *, beam_width: int, max_hops: int, k: int,
               excl=None):
+        if self.prefetches:
+            # Walk un-reranked at full beam width, then rerank from the
+            # block store (no later stage to hide this fetch behind).
+            beam_ids, _beam_d, stats = disk_mod.search_tiered(
+                self.index, queries, beam_width=beam_width,
+                max_hops=max_hops, k=beam_width, rerank=False, excl=excl)
+            ids, d2 = disk_mod.rerank_with_slow_tier(self.slow_tier,
+                                                     beam_ids, queries, k)
+            return ids, d2, stats, None
         ids, d2, stats = disk_mod.search_tiered(
             self.index, queries, beam_width=beam_width, max_hops=max_hops,
             k=k, rerank=self.do_rerank, excl=excl)
@@ -230,6 +333,8 @@ class _InFlight:
     ceilings: tuple[int, ...] | None = None
     dispatched: Any = None
     event: Any = None          # CUDA event after the flight's device work
+    parts: Any = None          # prefetch stage: continue outputs, host numpy
+    prefetch: Any = None       # prefetch stage: the slow tier's fetch future
 
 
 class SearchEngine:
@@ -256,6 +361,8 @@ class SearchEngine:
         self.num_buckets = num_buckets
         self.pad_quantum = pad_quantum
         self.coalesce_lanes = coalesce_lanes
+        self._close_lock = threading.Lock()
+        self._closed = False
         dev = backend.device
         self._stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
 
@@ -265,7 +372,10 @@ class SearchEngine:
         """Serve one batch, all stages back to back.  ``filter`` is a boolean
         allowed mask over the index's nodes, (n,) or (Q, n), enforced
         in-graph: out-of-filter nodes never enter the beam."""
-        return self._gather(self._schedule(self._dispatch(queries, filter)))
+        f = self._schedule(self._dispatch(queries, filter))
+        if self._prefetching():
+            f = self._prefetch(f)
+        return self._gather(f)
 
     def search_batches(self, batches: Iterable, *,
                        filter=None) -> Iterator[BatchResult]:
@@ -337,8 +447,12 @@ class SearchEngine:
     def _stream_pairs(self, pairs: Iterable) -> Iterator[BatchResult]:
         """The double-buffered pipeline core: each new dispatch advances
         every in-flight batch one stage, newest first, and the oldest
-        finished batch is gathered."""
+        finished batch is gathered.  A disk slow tier adds the prefetch
+        stage, so three batches are in flight: batch i's probe, batch i-1's
+        continue and batch i-2's block reads."""
         stages = [self._schedule]
+        if self._prefetching():
+            stages.append(self._prefetch)
         flight: list[list] = []
 
         def advance() -> BatchResult | None:
@@ -377,6 +491,8 @@ class SearchEngine:
         ``finish_from`` is exactly :meth:`search`."""
         if self._staged() and f.dispatched is None:
             f = self._schedule(f)
+        if self._prefetching() and f.prefetch is None:
+            f = self._prefetch(f)
         return self._gather(f)
 
     @property
@@ -466,7 +582,22 @@ class SearchEngine:
                     f.ceilings, budgets_np=sched, quantum=self.pad_quantum)
         return self._mark(f)
 
+    def _prefetch(self, f: _InFlight) -> _InFlight:
+        """Disk-tier stage: wait for the flight's continue work (its event),
+        copy the continue outputs to the host and submit the rerank's block
+        reads to the tier's worker pool.  It runs after the next batch's
+        continue is queued, so the reads overlap that walk; the gather joins
+        the future one stage later."""
+        if f.event is not None:
+            f.event.synchronize()
+        with self._on_stream():
+            f.parts = self._continue_parts(f)
+        f.prefetch = f.backend.prefetch_rerank(f.parts)
+        return f
+
     def _continue_parts(self, f: _InFlight) -> tuple:
+        if f.parts is not None:
+            return f.parts
         if f.ceilings is None or len(f.ceilings) <= 1:
             return tuple(a.cpu().numpy() for a in f.dispatched)
         return pipe.gather_bucketed_continue(f.budgets_np.shape[0],
@@ -474,7 +605,14 @@ class SearchEngine:
 
     def _gather(self, f: _InFlight) -> BatchResult:
         """Collection stage: wait for the flight's device work, pull the
-        results, finish (rerank), restore query order."""
+        results, finish (rerank), restore query order.  Then kick one
+        non-blocking promotion tick of a disk tier's hot tier, which digests
+        the frequencies this batch recorded while later batches run."""
+        res = self._collect(f)
+        self.backend.promotion_tick()
+        return res
+
+    def _collect(self, f: _InFlight) -> BatchResult:
         if f.event is not None:
             f.event.synchronize()
         with self._on_stream():
@@ -482,14 +620,20 @@ class SearchEngine:
                 ids, d2, stats, astats = f.handles
                 return BatchResult(ids=ids.cpu().numpy(),
                                    d2=d2.cpu().numpy(),
-                                   stats=_host_stats(stats), astats=astats)
+                                   stats=_host_stats(stats), astats=astats,
+                                   extras=f.backend.finish_extras())
             res = f.backend.finish(f.queries, self._continue_parts(f), self.k,
-                                   q_lid=f.q_lid, budgets_np=f.budgets_np)
+                                   q_lid=f.q_lid, budgets_np=f.budgets_np,
+                                   prefetch=f.prefetch)
         res.ceilings = f.ceilings
         return res
 
     def _staged(self) -> bool:
         return self.budget_cfg is not None
+
+    def _prefetching(self) -> bool:
+        """Whether the pipeline runs the disk prefetch stage."""
+        return self._staged() and self.backend.prefetches
 
     # ------------------------------------------------------ live reconfigure
 
@@ -538,6 +682,23 @@ class SearchEngine:
                 eval_recall, base, recall_target, **fit_kw)
         self.budget_cfg = result.budget_cfg(base)
         return result
+
+    def update_backend(self, *args, **kw) -> None:
+        """Swap refreshed index arrays into the live backend (see the
+        backend's ``update``); a replaced disk tier is closed there."""
+        self.backend.update(*args, **kw)
+
+    def close(self) -> None:
+        """Release backend-owned threads (a disk tier's workers).
+        Idempotent and safe from any thread, also while a stream is in
+        flight: exactly one caller closes the backend, and a closed disk
+        tier still serves its reads synchronously, so in-flight batches
+        complete with the same results."""
+        with self._close_lock:
+            if self._closed:
+                return
+            self._closed = True
+        self.backend.close()
 
     def _resolve_ceilings(self, budgets_np, cfg) -> tuple[int, ...] | None:
         if self.num_buckets == "auto":

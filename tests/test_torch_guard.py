@@ -60,12 +60,23 @@ from repro_torch.index import build_tiered_index
 x, q = make_dataset("tiny-uniform", device="cpu", n=300)
 g = build.build_mcgi(x, build.BuildConfig(degree=8, beam_width=16, batch=64,
                                           max_hops=32), device="cpu")
-eng = serving.SearchEngine(
-    serving.TieredBackend(build_tiered_index(x, g, m_pq=4, device="cpu"),
-                          device="cpu"),
-    search.AdaptiveBeamBudget(l_min=4, l_max=16), k=5)
+idx = build_tiered_index(x, g, m_pq=4, device="cpu")
+budget = search.AdaptiveBeamBudget(l_min=4, l_max=16)
+eng = serving.SearchEngine(serving.TieredBackend(idx, device="cpu"), budget,
+                           k=5)
 res = eng.search(q[:8].numpy())
 assert res.ids.shape == (8, 5) and (res.ids >= 0).all()
+import pathlib
+from repro_torch.index import load_index, open_or_build_slow_tier, save_index
+save_index(pathlib.Path(sys.argv[1]) / "i.npz", idx, version=2)
+tier = open_or_build_slow_tier(pathlib.Path(sys.argv[1]) / "d.blocks",
+                               load_index(pathlib.Path(sys.argv[1]) / "i.npz",
+                                          device="cpu"),
+                               cache_nodes=32, pin_nodes=8, hot_nodes=16)
+disk = serving.SearchEngine(
+    serving.TieredBackend(idx, slow_tier=tier, device="cpu"), budget, k=5)
+assert (list(disk.search_batches([q[:8].numpy()]))[0].ids == res.ids).all()
+disk.close()
 from repro_torch.core import distance
 _, gt = distance.brute_force_topk(q[:32], x, 5)
 fit = eng.recalibrate(q[:32].numpy(), gt.numpy(), recall_target=0.5,
@@ -77,9 +88,10 @@ print("ok")
 """
 
 
-def test_port_runs_with_jax_and_repro_blocked():
+def test_port_runs_with_jax_and_repro_blocked(tmp_path):
     env = {"PYTHONPATH": f"{ROOT / 'src'}:{ROOT}", "PATH": "/usr/bin:/bin"}
-    out = subprocess.run([sys.executable, "-c", _BLOCKED_RUN], cwd=ROOT,
-                         env=env, capture_output=True, text=True, timeout=300)
+    out = subprocess.run([sys.executable, "-c", _BLOCKED_RUN, str(tmp_path)],
+                         cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.strip().endswith("ok")
