@@ -19,7 +19,12 @@ Phases, each printed on its own lines; any failure exits non-zero:
    (``beam_walk``) as one launch of 12 hops and one launch to convergence
    (hop limits up to 200), each bit-identical to ``beam_step_ref`` hop by
    hop on integer data, with the lanes it leaves movable counted; its
-   device time per hop beside the one-hop launch's; ``l2_distance`` at the k-NN shape (4096 x 65536
+   device time per hop beside the one-hop launch's; the out-of-core walk's
+   row-fed hop (``beam_step.pq_rows``, the same shape, rows gathered from
+   the adjacency) for the select (every lane inactive, both ways), 12
+   hops and one hop from shuffled beams, bit-identical to
+   ``beam_hop_rows_ref`` on integer LUTs (frontiers and activity
+   included), within 1e-5 on float LUTs, timed; ``l2_distance`` at the k-NN shape (4096 x 65536
    x 128) float32 within rtol 1e-4 / atol 1e-3, on integer operands
    (0-255) at that shape bit-identical, on SIFT-scale near duplicates
    (1024 x 8192) within rtol 1e-4 / atol 1e-3 of float64 and no more than
@@ -88,6 +93,23 @@ Phases, each printed on its own lines; any failure exits non-zero:
    QPS, batch p50 / p99, recall@10, hit rate, blocks read, I/O blocks per
    query, measured read us and fetch p50 / p99 (reads from the OS page
    cache, not an SSD); fails unless ``beam_step`` [pq] launched there;
+3e. [ooc] the out-of-core walk at the same index and stream, over [disk]'s
+   stores (the temporary directory is removed after this phase):
+   ``OutOfCoreBackend`` (only the PQ codes, codebook and entry on the
+   card; adjacency and vectors read from the block store, LRU 4,096 + 256
+   pins) serving the stream pipelined and per batch over the node-order
+   store, pipelined over the packed store, and one fixed-beam batch at
+   beam 128; every run's ids, d2, hops and granted budgets must equal the
+   in-memory tiered run's bit for bit, ``beam_step.pq_rows`` must launch
+   and ``beam_step.pq`` must not, and the backend must hold no (N, R) or
+   (N, D) tensor.  Each run prints QPS, batch p50 / p99, host hops a
+   batch and ``pq_rows`` launches, the host ms of a host hop (waiting for
+   rows, copying them, launching, reading the frontier back), hit rate,
+   fetch p50 / p99, and I/O blocks and ids per query for the walk's reads
+   and the rerank's apart, each beside the card's name and power limit;
+   first, ``torch.profiler`` over one batch gives the row-fed kernel's
+   device ms per launch (printed beside each run's host ms a host hop)
+   and the device's busy share;
 4. the LM paths, with the MCGI world freed — qwen2-7b at full width
    (``repro_torch/configs/qwen2_7b.py``: 28 layers, d_model 3584, 28 query
    and 4 KV heads, d_ff 18944, vocab 152064, QKV bias), weights drawn from
@@ -124,9 +146,11 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -498,6 +522,187 @@ def check_kernel(kind, dev, n, q, width, r, hops: int, seed: int):
             "verdict": "bit-identical on integer data (hop by hop, a "
                        f"{WALK_HOPS}-hop launch, a launch to convergence); "
                        "float within rtol 1e-5"}
+
+
+def adj_rows(adj, u):
+    """``adj[u]`` with all-INVALID rows where u is INVALID (what the block
+    store's ``fetch_adj`` returns for a frontier)."""
+    import torch
+
+    return torch.where((u >= 0)[:, None], adj[u.clamp_min(0).long()],
+                       torch.full_like(adj[:1], -1))
+
+
+def hop_rows_bound(st0, st1, width_m: int, r: int):
+    """Least time of one row-fed hop from ``st0`` to ``st1``: bytes over
+    the HBM rate, or the merge's compares over the float32 rate.  Bytes:
+    every lane's beam (ids, d, exp) and counters read, its frontier and
+    activity read and written; per active lane its beam and counters
+    written, its row (R ids) and R visited words read; per valid neighbour
+    its code row, its M LUT entries and its visited word written.  Active
+    lanes and valid neighbours as this run's data has them."""
+    import math
+
+    q, width = st0[0].shape
+    beam = width * (4 + 4 + 1)
+    moved = st1[4] != st0[4]
+    n_act = int(moved.sum())
+    n_valid = int((st1[5] - st0[5]).sum())
+    nbytes = (q * (beam + 4 * 4 + 2 * (4 + 1)) + n_act * (beam + 8 + r * 8)
+              + n_valid * (width_m * (1 + 4) + 4))
+    ops = n_act * (width * r + r * (r + math.log2(width)))
+    return bound_of(nbytes, ops)
+
+
+def check_hop_rows(dev, n, q, width, r, hops: int, seed: int) -> dict:
+    """Phase 2 for the out-of-core walk's row-fed hop (kind "pq"): the
+    select (every lane inactive, both ways of saying it), then ``hops``
+    hops with each lane's row gathered from the adjacency, bit-identical to
+    ``beam_hop_rows_ref`` on integer data (states, frontiers and activity
+    after every launch), one hop from shuffled (unsorted) beams, float LUTs
+    within FLOAT_RTOL; timed.  Returns the kernel's record, per launch."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    names = ("ids", "d", "exp", "visited", "hops", "evals", "u", "active")
+
+    def same(got, want, what):
+        for name, a, b in zip(names, (*got[0], got[1], got[2]),
+                              (*want[0], want[1], want[2])):
+            if not torch.equal(a, b):
+                bad = int((a != b).reshape(a.shape[0], -1).any(1).sum())
+                raise AssertionError(f"beam_step[pq_rows] {what}: {name} "
+                                     f"differs from beam_hop_rows_ref in "
+                                     f"{bad} lanes (integer data)")
+
+    st0, ctxs, adj, table, budgets, hop_limits = walk_problem(
+        "pq", dev, n, q, width, r, True, seed, hops)
+    want = ref.beam_hop_rows_ref(st0, None, None, None, None, None, budgets,
+                                 hop_limits, kind="pq")
+    got = ops.beam_hop_rows(clone(st0), None, None, None, None, None,
+                            budgets, hop_limits, kind="pq")
+    sync(dev)
+    same(got, want, "select")
+    none = torch.zeros_like(want[2])
+    got = ops.beam_hop_rows(clone(st0), want[1], none, adj_rows(adj, want[1]),
+                            ctxs, table, budgets, hop_limits, kind="pq")
+    sync(dev)
+    same(got, want, "a hop with every lane inactive")
+    got = (clone(want[0]), want[1].clone(), want[2].clone())
+    for h in range(hops):
+        rows = adj_rows(adj, want[1])
+        want = ref.beam_hop_rows_ref(want[0], want[1], want[2], rows, ctxs,
+                                     table, budgets, hop_limits, kind="pq")
+        got = ops.beam_hop_rows(got[0], got[1], got[2], rows, ctxs, table,
+                                budgets, hop_limits, kind="pq")
+        sync(dev)
+        same(got, want, f"hop {h}")
+    left = int(want[2].sum())
+    # Shuffled beams: the general rank path of the merge.
+    g = torch.Generator(device=dev).manual_seed(seed + 5)
+    mid = ref.beam_hop_rows_ref(st0, None, None, None, None, None,
+                                budgets, torch.full_like(hop_limits, 1 << 20),
+                                kind="pq")
+    for _ in range(4):
+        mid = ref.beam_hop_rows_ref(
+            mid[0], mid[1], mid[2], adj_rows(adj, mid[1]), ctxs, table,
+            budgets, torch.full_like(hop_limits, 1 << 20), kind="pq")
+    perm = torch.argsort(torch.rand(mid[0][0].shape, generator=g,
+                                    device=dev), dim=1)
+    shuf = tuple(torch.gather(t, 1, perm) if i < 3 else t
+                 for i, t in enumerate(mid[0]))
+    far = torch.full_like(hop_limits, 1 << 20)
+    rows = adj_rows(adj, mid[1])
+    want = ref.beam_hop_rows_ref(shuf, mid[1], mid[2], rows, ctxs, table,
+                                 budgets, far, kind="pq")
+    got = ops.beam_hop_rows(clone(shuf), mid[1], mid[2], rows, ctxs, table,
+                            budgets, far, kind="pq")
+    sync(dev)
+    same(got, want, "one hop from shuffled beams")
+    log(f"[phase2] beam_step[pq_rows] integer data: the select (both "
+        f"forms), {hops} row-fed hops and a hop from shuffled beams "
+        f"bit-identical to beam_hop_rows_ref, frontiers and activity "
+        f"included (Q={q} L={width} R={r} N={n}; lanes active at the end: "
+        f"{left})")
+
+    # Float LUTs, one hop at a time from the plain version's state.
+    st, ctxs_f, adj_f, table_f, b_f, hl_f = walk_problem(
+        "pq", dev, n, q, width, r, False, seed + 1, hops)
+    cur = ref.beam_hop_rows_ref(st, None, None, None, None, None, b_f, hl_f,
+                                kind="pq")
+    max_err, tie_lanes = 0.0, 0
+    for h in range(hops):
+        rows = adj_rows(adj_f, cur[1])
+        a = ops.beam_hop_rows(clone(cur[0]), cur[1], cur[2], rows, ctxs_f,
+                              table_f, b_f, hl_f, kind="pq")
+        b = ref.beam_hop_rows_ref(cur[0], cur[1], cur[2], rows, ctxs_f,
+                                  table_f, b_f, hl_f, kind="pq")
+        same_l = ((a[0][0] == b[0][0]).all(1) & (a[0][3] == b[0][3]).all(1)
+                  & (a[1] == b[1]) & (a[2] == b[2]))
+        tie = near_tie(cur[0][1], FLOAT_RTOL) | near_tie(b[0][1], FLOAT_RTOL)
+        if bool((~same_l & ~tie).any()):
+            raise AssertionError(f"beam_step[pq_rows] float hop {h}: ids, "
+                                 f"visited or frontier differ in a lane "
+                                 f"without a tie")
+        fin = torch.isfinite(b[0][1]) & same_l[:, None]
+        if not torch.equal(torch.isfinite(a[0][1]) & same_l[:, None], fin):
+            raise AssertionError(f"beam_step[pq_rows] float hop {h}: inf "
+                                 f"pattern differs")
+        err = (a[0][1] - b[0][1]).abs()[fin]
+        if err.numel():
+            if not bool((err <= FLOAT_RTOL * b[0][1].abs()[fin]).all()):
+                raise AssertionError(f"beam_step[pq_rows] float hop {h}: "
+                                     f"beam_d beyond rtol {FLOAT_RTOL}")
+            max_err = max(max_err, float(err.max()))
+        tie_lanes += int((~same_l).sum())
+        cur = b
+    log(f"[phase2] beam_step[pq_rows] float data: beam_d within rtol "
+        f"{FLOAT_RTOL} (max abs err {max_err:.3g}); {tie_lanes} lane-hops "
+        f"differ, each at a near-tie")
+
+    # Timing from a mid-walk state, every lane active.
+    full = torch.full_like(budgets, width)
+    mid = ref.beam_hop_rows_ref(st0, None, None, None, None, None, full, far,
+                                kind="pq")
+    for _ in range(4):
+        mid = ref.beam_hop_rows_ref(mid[0], mid[1], mid[2],
+                                    adj_rows(adj, mid[1]), ctxs, table, full,
+                                    far, kind="pq")
+    if not bool(mid[2].all()):
+        raise AssertionError("a lane froze before the timed hop")
+    rows = adj_rows(adj, mid[1])
+    after = ref.beam_hop_rows_ref(mid[0], mid[1], mid[2], rows, ctxs, table,
+                                  full, far, kind="pq")
+
+    def hop(s):
+        return ops.beam_hop_rows(s, mid[1], mid[2], rows, ctxs, table, full,
+                                 far, kind="pq")
+
+    def plain(s):
+        return ref.beam_hop_rows_ref(s, mid[1], mid[2], rows, ctxs, table,
+                                     full, far, kind="pq")
+
+    for _ in range(3):                                   # warm-up
+        hop(clone(mid[0]))
+        plain(mid[0])
+    ms, host_ms = time_hop(hop, mid[0], hold=True)
+    plain_ms, _ = time_hop(plain, mid[0], hold=False)
+    bound = hop_rows_bound(mid[0], after[0], ctxs.shape[1], r)
+    log(f"[phase2] beam_step[pq_rows] one row-fed hop, {q} lanes: kernel "
+        f"{ms:.4f} ms on the device ({host_ms:.4f} ms of wrapper host time "
+        f"per launch), plain {plain_ms:.4f} ms, bound {bound[0]:.4f} ms "
+        f"({bound[1]})")
+    del st0, st, ctxs_f, adj_f, table_f, mid, after, shuf
+    return {"name": "beam_step.pq_rows", "route": "cuda",
+            "source": CSRC + SOURCES["beam_step"],
+            "replaces": REPLACES["beam_step"], "launches": None,
+            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None,
+            "host_ms": host_ms,
+            "verdict": "bit-identical on integer data (the select, "
+                       f"{hops} row-fed hops, shuffled beams); float within "
+                       "rtol 1e-5"}
 
 
 def time_calls(fn, hold: bool, reps: int = 20,
@@ -1359,15 +1564,13 @@ def disk_served(name, engine, tier, world, want, pipelined: bool) -> dict:
     return m
 
 
-def disk_path(world) -> dict:
+def disk_path(world, tmp: str) -> tuple[dict, dict]:
     """The disk-resident slow tier at phase 3's 1M index: stores written to
-    a temporary directory, the stream served pipelined and per batch, with a
-    hot tier, from a packed store, and from a saved and reloaded v2 index,
-    each bit-identical to the in-memory tiered run.  Returns the launch
-    counts of the disk runs."""
-    import shutil
-    import tempfile
-
+    ``tmp``, the stream served pipelined and per batch, with a hot tier,
+    from a packed store, and from a saved and reloaded v2 index, each
+    bit-identical to the in-memory tiered run.  Returns the launch counts of
+    the disk runs and the paths of the node-order and packed stores (left
+    in ``tmp`` for phase 3e)."""
     import torch
 
     from repro_torch import serving
@@ -1386,8 +1589,7 @@ def disk_path(world) -> dict:
                                                        budget, k=cfg.k),
                     world["batches"], world["gts"], world["n"], True,
                     keep=want)
-    tmp = tempfile.mkdtemp(prefix="mcgi-disk-")
-    log(f"[disk] stores in {tmp} (removed when the phase ends)")
+    log(f"[disk] stores in {tmp} (removed when phase 3e ends)")
     tiers = []
 
     def tier_engine(tier, idx=index):
@@ -1458,7 +1660,6 @@ def disk_path(world) -> dict:
         log(f"[disk] io_blocks/query: node order "
             f"{runs['pipelined']['io_blocks_per_query']:.2f}, packed "
             f"{runs['packed']['io_blocks_per_query']:.2f}")
-        os.remove(packed_path)
         npz = os.path.join(tmp, "sift1m.npz")
         t0 = time.perf_counter()
         save_index(npz, index, version=2)
@@ -1491,7 +1692,6 @@ def disk_path(world) -> dict:
     finally:
         for t in tiers:
             t.close()
-        shutil.rmtree(tmp, ignore_errors=True)
     log(f"[disk] in-memory qps {mem['qps']:.1f} against disk-served "
         f"pipelined {runs['pipelined']['qps']:.1f} and per batch "
         f"{runs['per_batch']['qps']:.1f}; kernel launches on the disk "
@@ -1499,6 +1699,271 @@ def disk_path(world) -> dict:
     if counts["beam_step.pq"] == 0:
         raise AssertionError("[disk] beam_step.pq was never launched on the "
                              "disk path")
+    return counts, {"node": node_path, "packed": packed_path}
+
+
+# --------------------------------------------------------------- phase 3e
+
+class ReadTally:
+    """The block reads of a ``BlockSlowTier``, split by kind: ``fetch_adj``
+    calls (the walk's adjacency rows) and ``fetch_beams`` calls (the
+    rerank's vectors).  Wraps those two methods of the tier and the store
+    reads under them; each store read runs under the tier's I/O lock, so the
+    store counters read around it belong to that read alone, and a
+    thread-local tag says which kind of fetch made it.  Per kind: calls,
+    distinct valid ids, blocks read, I/O blocks and each call's wall time."""
+
+    KINDS = (("walk", "fetch_adj"), ("rerank", "fetch_beams"))
+
+    def __init__(self, tier):
+        import threading
+
+        self.local = threading.local()
+        self.lock = threading.Lock()
+        self.reset()
+        for kind, name in self.KINDS:
+            setattr(tier, name, self._tagged(kind, getattr(tier, name)))
+        store = tier.store
+        for name in ("read_many", "read_blocks"):
+            setattr(store, name, self._counted(store, getattr(store, name)))
+
+    def reset(self) -> None:
+        self.by = {k: dict(calls=0, ids=0, blocks_read=0, io_blocks=0, us=[])
+                   for k, _ in self.KINDS}
+
+    def _tagged(self, kind, fn):
+        import numpy as np
+
+        def wrapped(ids):
+            ids = np.asarray(ids)
+            self.local.kind = kind
+            t0 = time.perf_counter()
+            try:
+                return fn(ids)
+            finally:
+                us = (time.perf_counter() - t0) * 1e6
+                self.local.kind = None
+                with self.lock:
+                    rec = self.by[kind]
+                    rec["calls"] += 1
+                    rec["ids"] += int(np.unique(ids[ids >= 0]).size)
+                    rec["us"].append(us)
+        return wrapped
+
+    def _counted(self, store, fn):
+        def wrapped(*args, **kw):
+            b0, i0 = store.stats.blocks_read, store.stats.io_blocks
+            out = fn(*args, **kw)
+            kind = getattr(self.local, "kind", None)
+            if kind is not None:
+                with self.lock:
+                    self.by[kind]["blocks_read"] += store.stats.blocks_read - b0
+                    self.by[kind]["io_blocks"] += store.stats.io_blocks - i0
+            return out
+        return wrapped
+
+
+def backend_device_tensors(backend) -> list:
+    """The tensors on the card that an ``OutOfCoreBackend`` holds."""
+    import torch
+
+    held = [v for v in vars(backend).values() if isinstance(v, torch.Tensor)]
+    return held + [backend.codebook.centroids]
+
+
+def ooc_served(name, engine, tally, world, want, pipelined: bool,
+               card: str, device_ms) -> dict:
+    """Serve phase 3's stream out-of-core; every batch's ids, d2, hops and
+    granted budgets must equal the in-memory tiered run's bit for bit.
+    Prints the serving metrics, the walk's host hops and their parts beside
+    ``device_ms`` (a row-fed launch's device time in the trace of one
+    batch), and the tier's reads split into walk and rerank."""
+    import numpy as np
+
+    back, tier = engine.backend, engine.backend.slow_tier
+    tier.reset_stats()
+    tally.reset()
+    back.timings = {}
+    got: list = []
+    m = serve_run(name, engine, world["batches"], world["gts"], world["n"],
+                  pipelined, keep=got)
+    t = back.timings
+    back.timings = None
+    for bi, (g, w) in enumerate(zip(got, want)):
+        if not (np.array_equal(g.ids, w.ids) and np.array_equal(g.d2, w.d2)
+                and np.array_equal(np.asarray(g.stats.hops),
+                                   np.asarray(w.stats.hops))
+                and (w.astats is None or np.array_equal(
+                    np.asarray(g.astats.budget),
+                    np.asarray(w.astats.budget)))):
+            raise AssertionError(f"[ooc] {name}: batch {bi} differs from the "
+                                 f"in-memory tiered run")
+    st, lat = tier.stats(), tier.fetch_latency_us()
+    nb = len(got)
+    nq = sum(g.ids.shape[0] for g in got)
+    hops = max(t.get("hops", 0), 1)
+    host_ms = {k: t.get(k, 0.0) * 1e3 / hops
+               for k in ("wait_s", "copy_s", "launch_s", "sync_s")}
+    split = {k: dict(calls=v["calls"], ids_per_query=v["ids"] / nq,
+                     blocks_read=v["blocks_read"],
+                     io_blocks_per_query=v["io_blocks"] / nq,
+                     fetch_p50_us=float(np.percentile(v["us"], 50))
+                     if v["us"] else 0.0,
+                     fetch_p99_us=float(np.percentile(v["us"], 99))
+                     if v["us"] else 0.0)
+             for k, v in tally.by.items()}
+    m.update(st, **lat, host_hops_per_batch=t.get("hops", 0) / nb,
+             walks=t.get("walks", 0), walk_s=t.get("walk_s", 0.0),
+             host_ms_per_hop=sum(host_ms.values()), host_ms_parts=host_ms,
+             io_blocks_per_query=st["io_blocks"] / nq, reads=split)
+    w_, r_ = split["walk"], split["rerank"]
+    log(f"[ooc] {name} ({card}): ids, d2, hops and budgets bit-identical to "
+        f"the in-memory tiered run; qps={m['qps']:.1f} batch "
+        f"p50={m['p50_ms']:.2f}ms p99={m['p99_ms']:.2f}ms "
+        f"recall@10={m['recall']:.4f}; host hops a batch "
+        f"{m['host_hops_per_batch']:.1f} ({m['walks']} walks, "
+        f"{m['walk_s']:.3f}s in them), pq_rows launches "
+        f"{m['launches']['beam_step.pq_rows']}; device {device_ms} ms a hop "
+        f"launch (trace of one batch) against host "
+        f"{m['host_ms_per_hop']:.4f} ms a host hop (wait for rows "
+        f"{host_ms['wait_s']:.4f}, copy {host_ms['copy_s']:.4f}, launch "
+        f"{host_ms['launch_s']:.4f}, read frontier {host_ms['sync_s']:.4f})")
+    log(f"[ooc] {name} reads: hit_rate={st['hit_rate']:.4f} "
+        f"io_blocks/query={m['io_blocks_per_query']:.2f} (walk "
+        f"{w_['io_blocks_per_query']:.2f}, rerank "
+        f"{r_['io_blocks_per_query']:.2f}); ids/query walk "
+        f"{w_['ids_per_query']:.2f} rerank {r_['ids_per_query']:.2f}; "
+        f"fetch p50={lat['fetch_p50_us']:.0f}us p99={lat['fetch_p99_us']:.0f}us "
+        f"over {lat['fetch_samples']} fetches (walk calls {w_['calls']} p50 "
+        f"{w_['fetch_p50_us']:.0f}us p99 {w_['fetch_p99_us']:.0f}us; rerank "
+        f"calls {r_['calls']} p50 {r_['fetch_p50_us']:.0f}us p99 "
+        f"{r_['fetch_p99_us']:.0f}us); reads come from the OS page cache")
+    return m
+
+
+def ooc_profile(engine, batch, card: str) -> dict:
+    """``torch.profiler`` over one batch served alone: the row-fed kernel's
+    device time per launch from the trace, beside the device's busy time
+    (the union of its kernel and copy intervals) and the batch's wall
+    time.  The profiler's own host overhead is in the wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.search(batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.events() if e.device_type.name == "CUDA"
+              and e.time_range.elapsed_us() > 0]
+    hop = [e.time_range.elapsed_us() for e in events
+           if "beam_hop_rows_kernel" in e.name]
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted((e.time_range.start, e.time_range.end)
+                       for e in events):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    out = dict(wall_ms=wall, busy_ms=busy / 1e3, launches=len(hop),
+               kernel_ms=(f"{statistics.mean(hop) / 1e3:.4f}" if hop
+                          else "not measured"),
+               kernel_ms_p99=(sorted(hop)[int(0.99 * (len(hop) - 1))] / 1e3
+                              if hop else None))
+    if not hop:
+        log(f"[ooc] profile of one batch ({card}): the trace holds no "
+            f"row-fed kernel; device time per hop launch not measured")
+        return out
+    log(f"[ooc] profile of one batch served alone ({card}): "
+        f"{len(hop)} row-fed hop launches, {out['kernel_ms']} ms of "
+        f"device time each (mean; p99 {out['kernel_ms_p99']:.4f}), "
+        f"{sum(hop) / 1e3:.2f} ms in all; device busy "
+        f"{out['busy_ms']:.2f} of {wall:.2f} ms wall (idle share "
+        f"{1 - out['busy_ms'] / wall:.4f}; the profiler's host overhead "
+        f"included)")
+    return out
+
+
+def ooc_path(world, stores: dict, card: str) -> dict:
+    """[ooc]: the out-of-core walk at phase 3's 1M index.  The in-memory
+    tiered results first (pipelined adaptive, and one fixed-beam batch),
+    then the stream through ``OutOfCoreBackend`` over [disk]'s node-order
+    store pipelined and per batch, over its packed store pipelined, and the
+    fixed-beam batch, each bit-identical to the in-memory run.  Returns the
+    launch counts of the out-of-core runs."""
+    from repro_torch import serving
+    from repro_torch.index import BlockSlowTier, BlockStore, entry_proximal_ids
+    from repro_torch.kernels import ops
+
+    cfg = sift1m()
+    budget = cfg.beam_budget()
+    index = world["tiered"].index
+    n, r = index.graph.adj.shape
+    d = index.vectors.shape[1]
+    want: list = []
+    serve_run("in-memory tiered adaptive pipelined (the [ooc] reference)",
+              serving.SearchEngine(world["tiered"], budget, k=cfg.k),
+              world["batches"], world["gts"], world["n"], True, keep=want)
+    fixed_kw = dict(k=cfg.k, beam_width=cfg.l_search, max_hops=cfg.max_hops)
+    want_fixed = [serving.SearchEngine(world["tiered"], None, **fixed_kw)
+                  .search(world["batches"][0])]
+    pins = entry_proximal_ids(index.graph.adj, index.graph.entry, limit=256)
+    tiers = []
+
+    def backend(path):
+        tier = BlockSlowTier(BlockStore(path), cache_nodes=4096,
+                             pinned_ids=pins)
+        tiers.append(tier)
+        back = serving.OutOfCoreBackend(index.codes, index.codebook,
+                                        index.graph.entry, tier,
+                                        device=index.device)
+        for t in backend_device_tensors(back):
+            if t.numel() in (n * r, n * d):
+                raise AssertionError(f"[ooc] the backend holds a tensor of "
+                                     f"{tuple(t.shape)}: the graph or the "
+                                     f"vectors on the card")
+        return back, ReadTally(tier)
+
+    try:
+        back, tally = backend(stores["node"])
+        held = sum(t.numel() * t.element_size()
+                   for t in backend_device_tensors(back))
+        log(f"[ooc] the backend holds {held} bytes on the card ({card}; codes "
+            f"{tuple(back.codes.shape)} uint8, codebook "
+            f"{tuple(back.codebook.centroids.shape)}, entry) against the "
+            f"in-memory index's {index.fast_tier_bytes()} fast-tier bytes; "
+            f"no (N, R) or (N, D) tensor; cache_nodes=4096 pins=256 "
+            f"io_groups={back.io_groups} io_depth={back.io_depth}")
+        eng = serving.SearchEngine(back, budget, k=cfg.k)
+        eng.search(world["qn"][:64])                        # warm-up
+        dev_ms = ooc_profile(eng, world["batches"][1], card)["kernel_ms"]
+        ops.reset_launch_counts()
+        runs = {"pipelined": ooc_served("node order, pipelined", eng, tally,
+                                        world, want, True, card, dev_ms),
+                "per_batch": ooc_served("node order, per batch", eng, tally,
+                                        world, want, False, card, dev_ms)}
+        packed, ptally = backend(stores["packed"])
+        runs["packed"] = ooc_served(
+            "packed 4 a page, pipelined",
+            serving.SearchEngine(packed, budget, k=cfg.k), ptally, world,
+            want, True, card, dev_ms)
+        one = dict(world, batches=world["batches"][:1], gts=world["gts"][:1])
+        runs["fixed"] = ooc_served(
+            "fixed beam 128, one batch",
+            serving.SearchEngine(back, None, **fixed_kw), tally, one,
+            want_fixed, False, card, dev_ms)
+        counts = ops.launch_counts()
+    finally:
+        for t in tiers:
+            t.close()
+    log(f"[ooc] kernel launches on the out-of-core path: "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    if counts["beam_step.pq_rows"] == 0:
+        raise AssertionError("[ooc] beam_step.pq_rows was never launched")
+    if counts["beam_step.pq"] != 0:
+        raise AssertionError("[ooc] the resident walk (beam_step.pq) ran on "
+                             "the out-of-core path")
     return counts
 
 
@@ -1802,6 +2267,9 @@ def main(argv=None) -> int:
                             cfg.degree, 12, args.seed + 7 * i)
                for i, kind in enumerate(("exact", "pq"))]
     torch.cuda.empty_cache()
+    kernels.append(check_hop_rows(dev, KERNEL_N, KERNEL_Q, cfg.l_search,
+                                  cfg.degree, 12, args.seed + 3))
+    torch.cuda.empty_cache()
     kernels += check_bulk_kernels(dev, args.seed)
     torch.cuda.empty_cache()
     kernels.append(check_pq_scan(dev, args.seed))
@@ -1815,7 +2283,12 @@ def main(argv=None) -> int:
                                      trace=args.trace_first_batch)
     paths["calibration"] = calibration_path(world)
     paths["adc"] = adc_path(world)
-    paths["disk"] = disk_path(world)
+    tmp = tempfile.mkdtemp(prefix="mcgi-disk-")
+    try:
+        paths["disk"], stores = disk_path(world, tmp)
+        paths["ooc"] = ooc_path(world, stores, card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     del world
     torch.cuda.empty_cache()
     lm_counts, attn_err = lm_paths(dev, args.seed)
@@ -1824,7 +2297,8 @@ def main(argv=None) -> int:
         if rec["name"] == "decode_attention":
             rec["max_abs_err"] = max(rec["max_abs_err"], attn_err)
     # Each kernel's launches are read on the path that runs it.
-    home = {"pq_scan": "adc", "decode_attention": "lm-serve"}
+    home = {"pq_scan": "adc", "decode_attention": "lm-serve",
+            "beam_step.pq_rows": "ooc"}
     for rec in kernels:
         rec["launches"] = paths[home.get(rec["name"], "main")][rec["name"]]
         rec["path_launches"] = {p: c[rec["name"]] for p, c in paths.items()}

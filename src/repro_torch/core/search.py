@@ -1,5 +1,5 @@
 """Batched greedy beam search over a proximity graph (port of
-:mod:`repro.core.search`, without the out-of-core ``ooc_*`` programs).
+:mod:`repro.core.search`).
 
 The beam is a fixed-shape (Q, L) state, the visited set a bitmask of
 (Q, ceil(N/32)) int32 words holding uint32 bit patterns, and the hop loop a
@@ -18,6 +18,12 @@ host loop makes one kernel call per hop).  The wrapper dispatches by the
 tensors' device only — one launch of the hand-written CUDA kernel on the
 card, its plain version (``beam_step_ref`` iterated) on the CPU — so the
 CPU tests drive the same call the card runs.
+
+The out-of-core walk keeps no adjacency on the card: :func:`ooc_select_pq`
+and :func:`ooc_hop_pq` are one :func:`repro_torch.kernels.ops.beam_hop_rows`
+each (a launch of the row-fed hop on the card), and the host loop of
+:func:`repro_torch.index.disk.ooc_walk` reads each hop's rows from the block
+store between them.
 """
 from __future__ import annotations
 
@@ -235,6 +241,53 @@ def fixed_search_batch(ctxs, adj, entry, eval_dists: DistEval, n: int,
     if excl is not None:
         beam_ids, beam_d = scrub_excluded(beam_ids, beam_d, excl)
     return beam_ids, beam_d, SearchStats(hops=hops, dist_evals=evals)
+
+
+# --------------------------------------------------------------------------
+# Out-of-core walk programs (the reference's ``ooc_*``): the in-memory walk's
+# per-lane ops split at the frontier selection, so the host can read each
+# hop's adjacency rows from the block store between two device calls:
+#
+#     select:  (state)            -> (state', u, active)      [device]
+#     fetch:   rows = adj[u]      via BlockSlowTier           [host  ]
+#     hop:     (state', u, rows)  -> expand, then next select [device]
+#
+# Both device calls are ops.beam_hop_rows (the select: every lane inactive).
+# Per lane they run the walk's ops in the walk's order, so an out-of-core
+# walk is bit-identical to the in-memory one.
+
+
+def ooc_init_pq(codes, ctxs, entry, n: int, beam_width: int, excl=None):
+    """Fresh lane states for a PQ-steered out-of-core walk: the entry's ADC
+    distance from the device-resident codes; ``excl`` pre-seeds the
+    visited sets with the filter, as :func:`fixed_search_batch` does."""
+    return _init_state(ctxs, entry, _pq_eval(codes), n, beam_width, excl)
+
+
+def ooc_select_pq(states, budgets, hop_limits, beam_width: int):
+    """The first frontier of an out-of-core walk segment: returns
+    ``(states, u, active)``, with ``u`` INVALID on lanes whose loop
+    condition is already False (no read is issued for them); the selection
+    is marked on active lanes only.  On the card ``states`` is updated in
+    place."""
+    if states[0].shape[1] != beam_width:
+        raise ValueError(f"beam width {states[0].shape[1]} != {beam_width}")
+    return ops.beam_hop_rows(states, None, None, None, None, None, budgets,
+                             hop_limits, kind="pq")
+
+
+def ooc_hop_pq(codes, states, u, active, rows, ctxs, budgets, hop_limits,
+               beam_width: int):
+    """One out-of-core hop: each active lane expands its selected frontier
+    ``u`` with ``rows`` (Q, R) int32 (= ``adj[u]``; host numpy or a tensor,
+    copied to the states' device on the current stream), then selects the
+    next.  Returns ``(states, u_next, active_next)`` as
+    :func:`ooc_select_pq` does."""
+    if states[0].shape[1] != beam_width:
+        raise ValueError(f"beam width {states[0].shape[1]} != {beam_width}")
+    rows = torch.as_tensor(rows, dtype=torch.int32, device=states[0].device)
+    return ops.beam_hop_rows(states, u, active, rows, ctxs, codes, budgets,
+                             hop_limits, kind="pq")
 
 
 def budget_bucket_ceilings(l_min: int, l_max: int,

@@ -57,6 +57,20 @@
 //     its beam, counters and the visited bits it set; the block adds one to
 //     `active_after` when its lane could still move, so a walk to
 //     convergence ends with the counter at 0 and the host reads it once.
+//
+// The out-of-core walk (repro_torch/index/disk.py::ooc_walk) keeps no
+// adjacency on the card: the host reads each hop's rows from the block
+// store, so every hop is a launch of its own, `repro_beam_hop_rows` (kind
+// "pq").  It runs the same pieces (visited test, ADC sum, merge, block
+// argmin) on one hop, with the row read from `rows + lane * R` in place of
+// `adj + u * R`, and ends by selecting and marking the next frontier, which
+// the host reads to fetch the next rows.  Every launch is the first hop of
+// its launch, so the beam's order is tested each time (a filtered probe
+// state may come in unsorted).  A hop reads only the R x M LUT entries its
+// codes name (1,024 of 4,096 at R = 64, M = 16, K = 256), so it reads them
+// from global memory: staging the whole LUT into shared memory each launch
+// (by `cp.async`, overlapping the visited test) measured slower at serving
+// shape (chip_smoke.py phase 2, when it timed both).
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -173,6 +187,118 @@ inline bool plan_walk(int kind, int L, int R, int width, int K, Plan* p) {
   return p->smem <= static_cast<size_t>(kMaxSmem);
 }
 
+// The pieces of a hop, shared by the resident walk and the row-fed hop.
+// Candidates live in shared memory as the L beam slots followed by the R
+// neighbours of the hop (distance cd, id ci, expanded flag ce).
+
+// Each thread's part of the frontier: the argmin over the open slots
+// (unexpanded, valid, in budget) it visits, and whether it saw one.
+template <int THREADS>
+__device__ __forceinline__ ArgMin open_argmin(int L, int budget, const float* cd,
+                                              const int32_t* ci, const unsigned char* ce,
+                                              int* open) {
+  ArgMin best{CUDART_INF_F, INT_MAX};
+  int o = 0;
+  for (int i = threadIdx.x; i < L; i += THREADS) {
+    const bool closed = ce[i] || ci[i] == kInvalid || i >= budget;
+    o |= !closed;
+    best = better(best, ArgMin{closed ? CUDART_INF_F : cd[i], i});
+  }
+  *open = o;
+  return best;
+}
+
+// The visited test of frontier u's adjacency row: neighbour r becomes a
+// candidate when it is valid, unvisited and u is valid, else INVALID at
+// inf.  Every read comes before any bit of the hop is set.
+template <int THREADS>
+__device__ __forceinline__ void test_row(const int32_t* __restrict__ row, int u, int L,
+                                         int R, const uint32_t* vis, float* cd, int32_t* ci,
+                                         unsigned char* ce) {
+  for (int r = threadIdx.x; r < R; r += THREADS) {
+    const int v = __ldg(row + r);
+    const int safe = v < 0 ? 0 : v;
+    const uint32_t bit = 1u << (safe & 31);
+    const bool seen = (__ldcg(vis + (safe >> 5)) & bit) != 0u;
+    const bool valid = v != kInvalid && u != kInvalid && !seen;
+    ci[L + r] = valid ? v : kInvalid;
+    cd[L + r] = CUDART_INF_F;
+    ce[L + r] = 0;
+  }
+}
+
+// Set the visited bits of the valid candidates (reductions nobody waits
+// on); returns how many this thread set.
+template <int THREADS>
+__device__ __forceinline__ int set_visited(int L, int R, const int32_t* ci, uint32_t* vis) {
+  int mine = 0;
+  for (int r = threadIdx.x; r < R; r += THREADS) {
+    const int v = ci[L + r];
+    if (v != kInvalid) {
+      atomicOr(vis + (v >> 5), 1u << (v & 31));
+      ++mine;
+    }
+  }
+  return mine;
+}
+
+// ADC distances of the valid candidates: a thread a code row, LUT entries
+// summed in m order (shared or global memory).
+template <int THREADS>
+__device__ __forceinline__ void adc(const float* lut, const uint8_t* __restrict__ codes,
+                                    int width, int K, int L, int R, const int32_t* ci,
+                                    float* cd) {
+  for (int r = threadIdx.x; r < R; r += THREADS) {
+    const int v = ci[L + r];
+    if (v == kInvalid) continue;
+    const uint8_t* code = codes + static_cast<size_t>(v) * width;
+    float acc = 0.f;
+#pragma unroll 8
+    for (int m = 0; m < width; ++m) acc += lut[m * K + __ldg(code + m)];
+    cd[L + r] = acc;
+  }
+}
+
+// Keep the best L of the L + R candidates into (nd, ni, ne), exactly as a
+// stable argsort (see the header for the sorted and unsorted ranks).
+template <int THREADS>
+__device__ __forceinline__ void merge(int L, int R, bool sorted, const float* cd,
+                                      const int32_t* ci, const unsigned char* ce, float* nd,
+                                      int32_t* ni, unsigned char* ne) {
+  const int T = L + R;
+  for (int i = threadIdx.x; i < T; i += THREADS) {
+    const float di = cd[i];
+    int rank;
+    if (sorted && i < L) {
+      rank = i;
+      for (int r = 0; r < R; ++r) rank += cd[L + r] < di;
+    } else if (sorted) {
+      int lo = 0, hi = L;                    // beam entries <= di
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (cd[mid] <= di) lo = mid + 1; else hi = mid;
+      }
+      rank = lo;
+      const int ri = i - L;
+      for (int r = 0; r < R; ++r) {
+        const float dr = cd[L + r];
+        rank += dr < di || (dr == di && r < ri);
+      }
+    } else {
+      rank = 0;
+      for (int k = 0; k < T; ++k) {
+        const float dk = cd[k];
+        rank += (dk < di) || (dk == di && k < i);
+      }
+    }
+    if (rank < L) {
+      ni[rank] = ci[i];
+      nd[rank] = di;
+      ne[rank] = ce[i];
+    }
+  }
+}
+
 // KIND 0: exact (table = (N, width) float32, ctxs = (Q, width) float32).
 // KIND 1: pq    (table = (N, width) uint8 codes, ctxs = (Q, width, K) LUTs).
 // SPLIT: exact rows gathered in several rounds of `rows_cap`, or a LUT read
@@ -236,13 +362,8 @@ beam_walk_kernel(
     unsigned char* ce = cat_exp + p * T;
 
     // 1. Frontier: argmin over open slots; freeze test.
-    ArgMin best{CUDART_INF_F, INT_MAX};
-    int open = 0;
-    for (int i = tid; i < L; i += kThreads) {
-      const bool closed = ce[i] || ci[i] == kInvalid || i >= budget;
-      open |= !closed;
-      best = better(best, ArgMin{closed ? CUDART_INF_F : cd[i], i});
-    }
+    int open;
+    ArgMin best = open_argmin<kThreads>(L, budget, cd, ci, ce, &open);
     if (tid == 0) s_nvalid = 0;
     can_move = __syncthreads_or(open) != 0 && h < hop_limit;
     if (!can_move || taken == max_hops) break;
@@ -250,17 +371,7 @@ beam_walk_kernel(
     const int u = ci[best.i];
 
     // 2. Adjacency row and visited test (every read before any bit is set).
-    const int32_t* row = adj + static_cast<size_t>(u < 0 ? 0 : u) * R;
-    for (int r = tid; r < R; r += kThreads) {
-      const int v = __ldg(row + r);
-      const int safe = v < 0 ? 0 : v;
-      const uint32_t bit = 1u << (safe & 31);
-      const bool seen = (__ldcg(vis + (safe >> 5)) & bit) != 0u;
-      const bool valid = v != kInvalid && u != kInvalid && !seen;
-      ci[L + r] = valid ? v : kInvalid;
-      cd[L + r] = CUDART_INF_F;
-      ce[L + r] = 0;
-    }
+    test_row<kThreads>(adj + static_cast<size_t>(u < 0 ? 0 : u) * R, u, L, R, vis, cd, ci, ce);
     __syncthreads();
     if (tid == 0) ce[best.i] = 1;
 
@@ -306,14 +417,7 @@ beam_walk_kernel(
       }
     };
     if (KIND == 0 && !SPLIT) gather(0, R);
-    int mine = 0;
-    for (int r = tid; r < R; r += kThreads) {
-      const int v = ci[L + r];
-      if (v != kInvalid) {
-        atomicOr(vis + (v >> 5), 1u << (v & 31));
-        ++mine;
-      }
-    }
+    const int mine = set_visited<kThreads>(L, R, ci, vis);
     if (mine) atomicAdd(&s_nvalid, mine);
     if (KIND == 0 && !SPLIT) {
       cp_async_wait_all();
@@ -329,17 +433,8 @@ beam_walk_kernel(
         reduce(r0, rn);
       }
     } else {
-      const float* lut = ctx_smem ? ctx_s : ctx_g;
-      const uint8_t* codes = static_cast<const uint8_t*>(table);
-      for (int r = tid; r < R; r += kThreads) {
-        const int v = ci[L + r];
-        if (v == kInvalid) continue;
-        const uint8_t* code = codes + static_cast<size_t>(v) * width;
-        float acc = 0.f;
-#pragma unroll 8
-        for (int m = 0; m < width; ++m) acc += lut[m * K + __ldg(code + m)];
-        cd[L + r] = acc;
-      }
+      adc<kThreads>(ctx_smem ? ctx_s : ctx_g, static_cast<const uint8_t*>(table), width, K, L,
+                    R, ci, cd);
     }
     __syncthreads();
     const int nvalid = s_nvalid;
@@ -348,37 +443,7 @@ beam_walk_kernel(
     float* nd = cat_d + (p ^ 1) * T;
     int32_t* ni = cat_ids + (p ^ 1) * T;
     unsigned char* ne = cat_exp + (p ^ 1) * T;
-    for (int i = tid; i < T; i += kThreads) {
-      const float di = cd[i];
-      int rank;
-      if (sorted && i < L) {
-        rank = i;
-        for (int r = 0; r < R; ++r) rank += cd[L + r] < di;
-      } else if (sorted) {
-        int lo = 0, hi = L;                    // beam entries <= di
-        while (lo < hi) {
-          const int mid = (lo + hi) >> 1;
-          if (cd[mid] <= di) lo = mid + 1; else hi = mid;
-        }
-        rank = lo;
-        const int ri = i - L;
-        for (int r = 0; r < R; ++r) {
-          const float dr = cd[L + r];
-          rank += dr < di || (dr == di && r < ri);
-        }
-      } else {
-        rank = 0;
-        for (int k = 0; k < T; ++k) {
-          const float dk = cd[k];
-          rank += (dk < di) || (dk == di && k < i);
-        }
-      }
-      if (rank < L) {
-        ni[rank] = ci[i];
-        nd[rank] = di;
-        ne[rank] = ce[i];
-      }
-    }
+    merge<kThreads>(L, R, sorted, cd, ci, ce, nd, ni, ne);
     __syncthreads();
     sorted = true;
     p ^= 1;
@@ -415,6 +480,105 @@ cudaError_t launch(int q, int L, int R, int nw, int width, int K, int vec4, int 
       L, R, width, K, vec4, max_hops, pl.rows_cap, ids, bd, be, vis, hp, ev, cx,
       ad, table, bu, hl, aa, nw);
   return cudaGetLastError();
+}
+
+// One hop of every lane with its adjacency row supplied by the caller (kind
+// "pq"): the out-of-core walk's hop, whose rows come from the block store
+// on the host.  Semantics are ref.py::beam_hop_rows_ref (the reference's
+// repro/core/search.py::ooc_hop_batch): an `active` lane expands its
+// already-selected frontier u (marked in beam_exp by the select that chose
+// it; this launch does not select it again) with `rows + lane * R`, every
+// lane then takes the freeze test, and a lane that can move selects, marks
+// and reports its next frontier.  `active == nullptr` is the select alone
+// (every lane inactive; rows, LUTs and codes unread).  The ADC reads the
+// lane's LUT from global memory.
+__global__ void __launch_bounds__(Shape<1>::kThreads, Shape<1>::kMinBlocks)
+beam_hop_rows_kernel(
+    int L, int R, int width, int K,
+    int32_t* __restrict__ beam_ids, float* __restrict__ beam_d,
+    bool* __restrict__ beam_exp, uint32_t* __restrict__ visited,
+    int32_t* __restrict__ hops, int32_t* __restrict__ evals,
+    const int32_t* __restrict__ u_in, const bool* __restrict__ active_in,
+    const int32_t* __restrict__ rows, const float* __restrict__ luts,
+    const uint8_t* __restrict__ codes, const int32_t* __restrict__ budgets,
+    const int32_t* __restrict__ hop_limits, int32_t* __restrict__ u_out,
+    bool* __restrict__ active_out, int nw) {
+  extern __shared__ float4 smem4[];
+  constexpr int kThreads = Shape<1>::kThreads, kWarps = Shape<1>::kWarps;
+  __shared__ ArgMin red[kMaxWarps];
+  __shared__ int s_nvalid;
+  const int T = L + R;
+  float* cat_d = reinterpret_cast<float*>(smem4);
+  int32_t* cat_ids = reinterpret_cast<int32_t*>(cat_d + 2 * T);
+  unsigned char* cat_exp = reinterpret_cast<unsigned char*>(cat_ids + 2 * T);
+
+  const int lane = blockIdx.x, tid = threadIdx.x;
+  int32_t* ids = beam_ids + static_cast<size_t>(lane) * L;
+  float* bd = beam_d + static_cast<size_t>(lane) * L;
+  bool* bexp = beam_exp + static_cast<size_t>(lane) * L;
+  uint32_t* vis = visited + static_cast<size_t>(lane) * nw;
+  const bool act = active_in != nullptr && active_in[lane];
+  int h = hops[lane];
+  int ev = evals[lane];
+
+  for (int i = tid; i < L; i += kThreads) {
+    cat_ids[i] = ids[i];
+    cat_d[i] = bd[i];
+    cat_exp[i] = bexp[i];
+  }
+  int p = 0;
+  if (act) {
+    if (tid == 0) s_nvalid = 0;
+    test_row<kThreads>(rows + static_cast<size_t>(lane) * R, u_in[lane], L, R, vis, cat_d,
+                       cat_ids, cat_exp);
+    __syncthreads();
+    int in_order = 1;
+    for (int i = tid; i + 1 < L; i += kThreads) in_order &= cat_d[i] <= cat_d[i + 1];
+    const bool sorted = __syncthreads_and(in_order) != 0;
+    const int mine = set_visited<kThreads>(L, R, cat_ids, vis);
+    if (mine) atomicAdd(&s_nvalid, mine);
+    adc<kThreads>(luts + static_cast<size_t>(lane) * width * K, codes, width, K, L, R,
+                  cat_ids, cat_d);
+    __syncthreads();
+    merge<kThreads>(L, R, sorted, cat_d, cat_ids, cat_exp, cat_d + T, cat_ids + T,
+                    cat_exp + T);
+    ev += s_nvalid;
+    ++h;
+    p = 1;
+  }
+  __syncthreads();
+
+  // The freeze test and the next frontier.
+  float* cd = cat_d + p * T;
+  int32_t* ci = cat_ids + p * T;
+  unsigned char* ce = cat_exp + p * T;
+  int open;
+  ArgMin best = open_argmin<kThreads>(L, budgets[lane], cd, ci, ce, &open);
+  const bool can_move = __syncthreads_or(open) != 0 && h < hop_limits[lane];
+  int u_next = kInvalid;
+  if (can_move) {
+    best = block_argmin<kWarps>(best, red);
+    u_next = ci[best.i];
+    if (act && tid == 0) ce[best.i] = 1;
+  }
+  if (act) {
+    __syncthreads();
+    for (int i = tid; i < L; i += kThreads) {
+      ids[i] = ci[i];
+      bd[i] = cd[i];
+      bexp[i] = ce[i] != 0;
+    }
+    if (tid == 0) {
+      hops[lane] = h;
+      evals[lane] = ev;
+    }
+  } else if (can_move && tid == 0) {
+    bexp[best.i] = true;
+  }
+  if (tid == 0) {
+    u_out[lane] = u_next;
+    active_out[lane] = can_move;
+  }
 }
 
 }  // namespace
@@ -459,4 +623,41 @@ extern "C" int repro_beam_walk(int kind, int q, int L, int R, int nw, int width,
                 : (split ? launch<1, true>(REPRO_WALK_ARGS) : launch<1, false>(REPRO_WALK_ARGS));
 #undef REPRO_WALK_ARGS
   return static_cast<int>(e);
+}
+
+// Plain C entry point of the row-fed hop (kind "pq" only), loaded with
+// ctypes: one hop of every lane as beam_hop_rows_kernel says, the state
+// updated in place, `u_next` (Q,) int32 and `active_next` (Q,) bool
+// written.  `active == nullptr` launches the select alone (R, width and K
+// then unused).  Launches on `stream`, allocates nothing, does not
+// synchronise; returns cudaGetLastError(), or kTooWide, launching nothing,
+// when the two candidate buffers do not fit in a block's shared memory.
+extern "C" int repro_beam_hop_rows(int q, int L, int R, int nw, int width, int K,
+                                   void* beam_ids, void* beam_d, void* beam_exp,
+                                   void* visited, void* hops, void* evals, const void* u,
+                                   const void* active, const void* rows, const void* luts,
+                                   const void* codes, const void* budgets,
+                                   const void* hop_limits, void* u_next, void* active_next,
+                                   void* stream) {
+  if (q <= 0) return 0;
+  if (active == nullptr) R = width = K = 0;
+  if (L <= 0 || R < 0 || (active != nullptr && (R <= 0 || width <= 0 || K <= 0)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t T = static_cast<size_t>(L) + R;
+  const size_t smem = 2 * T * (sizeof(float) + sizeof(int32_t)) + 2 * T;
+  if (smem > static_cast<size_t>(kMaxSmem)) return kTooWide;
+  cudaError_t e = cudaFuncSetAttribute(beam_hop_rows_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  beam_hop_rows_kernel<<<q, Shape<1>::kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      L, R, width, K, static_cast<int32_t*>(beam_ids), static_cast<float*>(beam_d),
+      static_cast<bool*>(beam_exp), static_cast<uint32_t*>(visited),
+      static_cast<int32_t*>(hops), static_cast<int32_t*>(evals),
+      static_cast<const int32_t*>(u), static_cast<const bool*>(active),
+      static_cast<const int32_t*>(rows), static_cast<const float*>(luts),
+      static_cast<const uint8_t*>(codes), static_cast<const int32_t*>(budgets),
+      static_cast<const int32_t*>(hop_limits), static_cast<int32_t*>(u_next),
+      static_cast<bool*>(active_next), nw);
+  return static_cast<int>(cudaGetLastError());
 }

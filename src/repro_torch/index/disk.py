@@ -1,5 +1,4 @@
-"""Two-tier disk-resident index (port of :mod:`repro.index.disk`, without
-the out-of-core walk).
+"""Two-tier disk-resident index (port of :mod:`repro.index.disk`).
 
   fast tier : PQ codes (N, M) uint8 + adjacency (N, R) int32 on the card
   slow tier : full-precision vectors (N, D) float32 — device-memory rows
@@ -16,7 +15,7 @@ measures them (``BlockStore.stats``).
 
 The slow tier plugs in behind :class:`SlowTier`: serving swaps the block
 store in through ``TieredBackend(index, slow_tier=BlockSlowTier(...))``.
-The walk still runs on the card over the fast tier; only the rerank's fetch
+That walk still runs on the card over the fast tier; only the rerank's fetch
 moves to the host, and :func:`rerank_with_slow_tier` runs the in-memory
 rerank's arithmetic on the fetched rows, so results are bit-identical
 between the tiers.  :class:`BlockSlowTier` adds a pinned set and an LRU of
@@ -24,8 +23,17 @@ records with exact hit and miss counters, host-thread prefetch (the
 engine's prefetch stage overlaps batch i's block reads with batch i+1's
 walk), and an optional frequency-aware hot tier
 (:class:`repro_torch.index.hot_tier.HotTier`).  The tier works on host
-numpy only: its worker and promoter threads never touch the card.  The
-out-of-core walk (adjacency read at walk time) is not ported yet.
+numpy only: its worker and promoter threads never touch the card.
+
+The out-of-core walk (:func:`ooc_walk`, :func:`ooc_probe`,
+:func:`ooc_continue`; served by
+:class:`repro_torch.serving.engine.OutOfCoreBackend`) keeps only the PQ
+codes on the card: each hop's adjacency rows are read from the block store
+on the tier's worker threads (:meth:`BlockSlowTier.prefetch_adj`), copied
+to the card, and expanded by one launch of the row-fed ``beam_step`` hop,
+whose next frontier the host reads back to issue the next reads.  Lane
+groups advance round-robin, so one group's reads overlap another's hop.
+Results are bit-identical to the in-memory walk.
 """
 from __future__ import annotations
 
@@ -109,10 +117,16 @@ def build_tiered_index(x, graph: GraphIndex, m_pq: int = 16, seed: int = 0,
 
 def _query_luts(index: TieredIndex, queries: torch.Tensor) -> torch.Tensor:
     """Per-query ADC LUTs, zero-padding queries to the PQ-padded dim."""
-    d_book = index.codebook.m * index.codebook.dsub
+    return codebook_luts(index.codebook, queries)
+
+
+def codebook_luts(codebook: PqCodebook, queries: torch.Tensor) -> torch.Tensor:
+    """(Q, D) queries -> (Q, M, K) ADC LUTs of ``codebook``, zero-padding the
+    queries to the PQ-padded dim."""
+    d_book = codebook.m * codebook.dsub
     if queries.shape[1] < d_book:
         queries = F.pad(queries, (0, d_book - queries.shape[1]))
-    return build_lut(queries, index.codebook.centroids)
+    return build_lut(queries, codebook.centroids)
 
 
 def search_tiered(index: TieredIndex, queries, beam_width: int, k: int = 10,
@@ -588,3 +602,146 @@ def rerank_with_slow_tier(slow_tier, beam_ids, queries: torch.Tensor,
     return search_mod._rerank_from_vecs(
         torch.as_tensor(beam_ids, device=dev),
         torch.from_numpy(np.ascontiguousarray(vecs)).to(dev), queries, k)
+
+
+# --------------------------------------------------------------------------
+# Out-of-core walk drivers: host loops over the split-hop programs of
+# repro_torch.core.search (ooc_select_pq / ooc_hop_pq), the adjacency served
+# from the block store.
+# --------------------------------------------------------------------------
+
+
+def _tree_slice(state, a: int, b: int):
+    """Lanes a:b of every state leaf, as owned copies (the card's hop
+    updates a state in place, and the caller keeps the input)."""
+    return tuple(t[a:b].clone() for t in state)
+
+
+def _tree_concat(states):
+    return tuple(torch.cat(leaves, 0) for leaves in zip(*states))
+
+
+def ooc_walk(codes, states, ctxs, budgets, hop_limits, beam_width: int,
+             tier: BlockSlowTier, io_groups: int = 2,
+             timings: dict | None = None):
+    """Drive a batch of lane states to convergence out-of-core; returns the
+    final states (new tensors; ``states`` is left as it was).
+
+    Lanes are split into up to ``io_groups`` contiguous groups that advance
+    round-robin: while one group's hop runs on the card, another group's
+    adjacency rows are read on the tier's worker threads (submitted through
+    :meth:`BlockSlowTier.prefetch_adj`).  Per-lane results do not depend on
+    the grouping.  Each pass of a group is one host hop: wait for its rows,
+    copy them to the card, launch its hop (:func:`ooc_hop_pq`), read its
+    next frontier and activity back, and submit the next reads; every copy
+    and launch goes on the current stream.
+
+    ``timings`` (a dict, optional) accumulates the host hops (``hops``), the
+    seconds spent waiting for rows (``wait_s``), copying them to the card
+    (``copy_s``), launching (``launch_s``) and reading the frontier back
+    (``sync_s``), and the walks and their seconds (``walks``, ``walk_s``).
+    """
+    nq = int(ctxs.shape[0])
+    if nq == 0:
+        return states
+    t_walk = time.perf_counter()
+    dev = states[0].device
+    budgets, hop_limits = search_mod._lane_vectors(nq, beam_width,
+                                                   hop_limits, budgets, dev)
+    n_groups = max(1, min(int(io_groups), nq))
+    per = (nq + n_groups - 1) // n_groups
+    groups = []
+    for a in range(0, nq, per):
+        b = min(a + per, nq)
+        st, u, act = search_mod.ooc_select_pq(
+            _tree_slice(states, a, b), budgets[a:b], hop_limits[a:b],
+            beam_width)
+        groups.append({"st": st, "u": u, "act": act, "ctx": ctxs[a:b],
+                       "bud": budgets[a:b], "hl": hop_limits[a:b],
+                       "future": None, "done": False})
+    # Prime the reads: every live group's first frontier goes to the
+    # workers before any hop is launched.
+    for g in groups:
+        u_h = _host(g["u"])
+        if _host(g["act"]).any():
+            g["future"] = tier.prefetch_adj(u_h)
+        else:
+            g["done"] = True
+    while not all(g["done"] for g in groups):
+        for g in groups:
+            if g["done"]:
+                continue
+            t0 = time.perf_counter()
+            rows = g["future"].result()     # this group's worker read
+            t1 = time.perf_counter()
+            rows = torch.as_tensor(rows, device=dev)
+            t2 = time.perf_counter()
+            g["st"], g["u"], g["act"] = search_mod.ooc_hop_pq(
+                codes, g["st"], g["u"], g["act"], rows, g["ctx"], g["bud"],
+                g["hl"], beam_width)
+            t3 = time.perf_counter()
+            # Reading the frontier waits for this group's hop; the other
+            # groups' reads are meanwhile in flight on the workers.
+            u_h, act_h = _host(g["u"]), _host(g["act"])
+            t4 = time.perf_counter()
+            if act_h.any():
+                g["future"] = tier.prefetch_adj(u_h)
+            else:
+                g["done"] = True
+            if timings is not None:
+                for key, dt in (("wait_s", t1 - t0), ("copy_s", t2 - t1),
+                                ("launch_s", t3 - t2), ("sync_s", t4 - t3)):
+                    timings[key] = timings.get(key, 0.0) + dt
+                timings["hops"] = timings.get("hops", 0) + 1
+    out = (groups[0]["st"] if len(groups) == 1
+           else _tree_concat([g["st"] for g in groups]))
+    if timings is not None:
+        timings["walks"] = timings.get("walks", 0) + 1
+        timings["walk_s"] = (timings.get("walk_s", 0.0)
+                             + time.perf_counter() - t_walk)
+    return out
+
+
+def ooc_probe(codes, ctxs, entry, n: int,
+              budget_cfg: search_mod.AdaptiveBeamBudget,
+              tier: BlockSlowTier, max_hops: int | None = None,
+              io_groups: int = 2, excl=None, timings: dict | None = None):
+    """Out-of-core probe + budget grant, the host-driven counterpart of
+    :func:`repro_torch.core.search.adaptive_probe_batch` (bit-identical
+    outputs for the same inputs): ``excl`` filters the walk through the
+    visited pre-seed, and the probe state is scrubbed of the forced entry
+    before the grant.  Returns (probe_state, budgets, hop_limits, q_lid)."""
+    l_max = budget_cfg.l_max
+    states = search_mod.ooc_init_pq(codes, ctxs, entry, n, l_max, excl=excl)
+    probe_state = ooc_walk(codes, states, ctxs, budget_cfg.l_min,
+                           budget_cfg.probe_hops, l_max, tier, io_groups,
+                           timings)
+    if excl is not None:
+        probe_state = search_mod._scrub_state(probe_state, excl)
+    budgets, hop_limits, q_lid = search_mod.grant_budgets(
+        probe_state, budget_cfg, max_hops)
+    return probe_state, budgets, hop_limits, q_lid
+
+
+def ooc_continue(codes, probe_state, ctxs, budgets, hop_limits,
+                 beam_width: int, tier: BlockSlowTier, io_groups: int = 2,
+                 timings: dict | None = None):
+    """Out-of-core continue: resume probe states under granted budgets.
+    Returns (beam_ids, beam_d, hops, evals), the continue programs' layout,
+    so the engine's bucket scheduler dispatches it unchanged."""
+    state = ooc_walk(codes, probe_state, ctxs, budgets, hop_limits,
+                     beam_width, tier, io_groups, timings)
+    return state[0], state[1], state[4], state[5]
+
+
+def ooc_first_frontier(probe_state, budgets, hop_limits,
+                       beam_width: int) -> np.ndarray:
+    """The continue phase's first frontier node of each lane (INVALID for
+    lanes already converged), host numpy: known as soon as the budgets are
+    granted, which is what the engine's walk-prefetch stage reads ahead.
+    The select marks ``beam_exp`` alone, so only that leaf is copied."""
+    state = (probe_state[0], probe_state[1], probe_state[2].clone(),
+             *probe_state[3:])
+    _, u, _ = search_mod.ooc_select_pq(state, budgets, hop_limits,
+                                       beam_width)
+    return _host(u)

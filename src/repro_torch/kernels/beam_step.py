@@ -11,7 +11,10 @@ lane until it freezes.  :mod:`repro_torch.kernels._build` compiles it for
 :func:`beam_walk_cuda` updates the walk state **in place**: every state
 tensor must be contiguous and on the card, and after the call holds the
 state after the walk (lanes frozen at entry untouched).
-``ops.beam_step`` is the same kernel at ``max_hops = 1``.  Rows of any
+``ops.beam_step`` is the same kernel at ``max_hops = 1``.
+:func:`beam_hop_rows_cuda` is the out-of-core walk's hop: one hop of every
+lane with its adjacency row supplied (kind "pq"), then the next frontier's
+select, counted as ``pq_rows``.  Rows of any
 width walk: "exact" gathers its neighbour rows in rounds of at most 48 KB,
 and "pq" reads a LUT too large for shared memory from global memory.  The
 one limit is that the two candidate buffers, the exact query and one exact
@@ -36,10 +39,13 @@ MAX_HOPS = 2**31 - 1          # a hop cap that never binds: walk to the end
 _TOO_WIDE = -2                # csrc: kTooWide, nothing launched
 
 LIB = _build.Library("beam_step", "repro_beam_walk",
-                     [ctypes.c_int] * 9 + [ctypes.c_void_p] * 13)
+                     [ctypes.c_int] * 9 + [ctypes.c_void_p] * 13,
+                     extra={"repro_beam_hop_rows":
+                            [ctypes.c_int] * 6 + [ctypes.c_void_p] * 16})
 
-# Kernel launches since the last reset, per kind: one per launch, nowhere else.
-launches = {"exact": 0, "pq": 0}
+# Kernel launches since the last reset, per kind (``pq_rows``: the row-fed
+# hop): one per launch, nowhere else.
+launches = {"exact": 0, "pq": 0, "pq_rows": 0}
 
 
 def reset_launch_counts() -> None:
@@ -115,3 +121,64 @@ def beam_walk_cuda(state, ctxs, adj, table, budgets, hop_limits, *, kind,
     launches[kind] += 1
     return state
 
+
+
+def beam_hop_rows_cuda(state, u, active, rows, ctxs, table, budgets,
+                       hop_limits, *, kind):
+    """One row-fed hop of every lane on the card, in place (semantics of
+    :func:`repro_torch.kernels.ref.beam_hop_rows_ref`; kind "pq" only).
+
+    ``u`` (Q,) int32 and ``active`` (Q,) bool are each lane's selected
+    frontier and whether it moves; ``rows`` (Q, R) int32 its adjacency row;
+    ``ctxs`` (Q, M, K) float32 LUTs and ``table`` (N, M) uint8 codes.
+    ``active=None`` is the select alone (``u``, ``rows``, ``ctxs`` and
+    ``table`` unused; only ``beam_exp`` is written).  Returns
+    ``(state, u_next, active_next)``, the last two new (Q,) tensors.
+    """
+    if kind != "pq":
+        raise ValueError(f"the row-fed hop takes kind 'pq' only, got {kind!r}")
+    beam_ids, beam_d, beam_exp, visited, hops, evals = state
+    dev = beam_ids.device
+    _build.check_card(dev, "beam_step")
+    q, width = beam_ids.shape
+    nw = visited.shape[1]
+    _build.need(beam_ids, "beam_ids", torch.int32, (q, width), dev)
+    _build.need(beam_d, "beam_d", torch.float32, (q, width), dev)
+    _build.need(beam_exp, "beam_exp", torch.bool, (q, width), dev)
+    _build.need(visited, "visited", torch.int32, (q, nw), dev)
+    _build.need(hops, "hops", torch.int32, (q,), dev)
+    _build.need(evals, "evals", torch.int32, (q,), dev)
+    budgets = torch.as_tensor(budgets, dtype=torch.int32, device=dev)
+    budgets = budgets.expand(q).contiguous()
+    hop_limits = torch.as_tensor(hop_limits, dtype=torch.int32, device=dev)
+    hop_limits = hop_limits.expand(q).contiguous()
+    r = m = k = 0
+    ptrs = [None] * 5
+    if active is not None:
+        r, m, k = rows.shape[1], table.shape[1], ctxs.shape[-1]
+        if width + r > _MAX_CANDIDATES:
+            raise ValueError(f"beam width + degree = {width + r} exceeds "
+                             f"{_MAX_CANDIDATES}")
+        _build.need(u, "u", torch.int32, (q,), dev)
+        _build.need(active, "active", torch.bool, (q,), dev)
+        _build.need(rows, "rows", torch.int32, (q, r), dev)
+        _build.need(ctxs, "ctxs", torch.float32, (q, m, k), dev)
+        _build.need(table, "table", torch.uint8, (table.shape[0], m), dev)
+        ptrs = [t.data_ptr() for t in (u, active, rows, ctxs, table)]
+    u_next = torch.empty((q,), dtype=torch.int32, device=dev)
+    active_next = torch.empty((q,), dtype=torch.bool, device=dev)
+    rc = LIB.fn("repro_beam_hop_rows")(
+        q, width, r, nw, m, k, beam_ids.data_ptr(),
+        beam_d.data_ptr(), beam_exp.data_ptr(), visited.data_ptr(),
+        hops.data_ptr(), evals.data_ptr(), *ptrs, budgets.data_ptr(),
+        hop_limits.data_ptr(), u_next.data_ptr(), active_next.data_ptr(),
+        _build.stream(dev))
+    if rc == _TOO_WIDE:
+        raise ValueError(f"beam_step[pq_rows]: the two candidate buffers "
+                         f"(L + R = {width + r}) do not fit in a block's "
+                         f"shared memory")
+    if rc != 0:
+        raise RuntimeError(f"beam_step row-fed hop launch failed: CUDA error "
+                           f"{rc}")
+    launches["pq_rows"] += 1
+    return state, u_next, active_next

@@ -109,9 +109,32 @@ def beam_walk(state, ctxs, adj, table, budgets, hop_limits, *, kind: str,
     return out
 
 
+def beam_hop_rows(state, u, active, rows, ctxs, table, budgets, hop_limits,
+                  *, kind: str):
+    """One hop of the out-of-core walk: each ``active`` lane expands its
+    selected frontier ``u`` with its adjacency row ``rows`` (Q, R), then
+    every lane that can move selects and marks its next frontier; returns
+    ``(state, u_next, active_next)`` (see
+    :func:`repro_torch.kernels.ref.beam_hop_rows_ref`).  ``active=None`` is
+    the select alone.  Kind "pq" only; one launch of the row-fed kernel on
+    the card (the state updated in place), the plain version on the CPU
+    (new tensors).  Callers use the return value either way."""
+    if kind != "pq":
+        raise ValueError(f"the row-fed hop takes kind 'pq' only, got {kind!r}")
+    dev = state[0].device
+    if dev.type == "cuda":
+        return _beam.beam_hop_rows_cuda(state, u, active, rows, ctxs, table,
+                                        budgets, hop_limits, kind=kind)
+    if dev.type != "cpu":
+        raise ValueError(f"beam_step has no implementation for device {dev}")
+    return _ref.beam_hop_rows_ref(state, u, active, rows, ctxs, table,
+                                  budgets, hop_limits, kind=kind)
+
+
 def launch_counts() -> dict[str, int]:
     """Launches of every kernel since the last :func:`reset_launch_counts`:
-    ``beam_step.exact``, ``beam_step.pq``, ``l2_distance``, ``topk``,
+    ``beam_step.exact``, ``beam_step.pq``, ``beam_step.pq_rows`` (the
+    out-of-core walk's row-fed hop), ``l2_distance``, ``topk``,
     ``lid_estimate``, ``pq_scan`` and ``decode_attention``."""
     out = {f"beam_step.{k}": v for k, v in _beam.launches.items()}
     for mod in _COUNTED:

@@ -61,48 +61,43 @@ def _as_lanes(v, q: int, device) -> torch.Tensor:
     return torch.as_tensor(v, dtype=torch.int32, device=device).expand(q)
 
 
+def _in_budget(beam_ids, budgets):
+    """(Q, L) bool: the beam slots below each lane's budget."""
+    q, width = beam_ids.shape
+    slot = torch.arange(width, device=beam_ids.device)
+    return slot[None, :] < _as_lanes(budgets, q, beam_ids.device)[:, None]
+
+
 def lane_active(beam_ids, beam_exp, hops, budgets, hop_limits) -> torch.Tensor:
     """(Q,) bool: whether each lane's walk can still take a hop — hop limit
     not reached and an unexpanded, valid, in-budget beam slot left."""
-    q, width = beam_ids.shape
-    slot = torch.arange(width, device=beam_ids.device)
-    in_budget = slot[None, :] < _as_lanes(budgets, q, beam_ids.device)[:, None]
-    frontier_open = ((~beam_exp) & (beam_ids != INVALID) & in_budget).any(1)
-    return (hops < _as_lanes(hop_limits, q, beam_ids.device)) & frontier_open
+    frontier_open = ((~beam_exp) & (beam_ids != INVALID)
+                     & _in_budget(beam_ids, budgets)).any(1)
+    return (hops < _as_lanes(hop_limits, beam_ids.shape[0], beam_ids.device)
+            ) & frontier_open
 
 
-def beam_step_ref(state, ctxs, adj, table, budgets, hop_limits, *, kind):
-    """One beam-walk hop over a batch of lanes (plain PyTorch oracle).
-
-    ``state`` is (beam_ids (Q, L) int32, beam_d (Q, L) float32, beam_exp
-    (Q, L) bool, visited (Q, ceil(N/32)) int32 holding uint32 bit patterns,
-    hops (Q,) int32, evals (Q,) int32).  ``kind="exact"``: ``table`` is
-    (N, D) float32 vectors and ``ctxs`` (Q, D) queries; ``kind="pq"``:
-    ``table`` is (N, M) uint8 codes and ``ctxs`` (Q, M, K) ADC LUTs.
-    Returns the post-hop state as new tensors; lanes whose frontier is closed
-    or hop limit reached come back unchanged.
-    """
-    if kind not in ("exact", "pq"):
-        raise ValueError(f"unknown beam_step kind {kind!r}")
+def _select(state, in_budget):
+    """The frontier of every lane: the argmin over its unexpanded, valid,
+    in-budget beam slots (ties to the lowest slot; a lane with none open
+    takes slot 0), marked expanded.  Returns (state, u)."""
     beam_ids, beam_d, beam_exp, visited, hops, evals = state
-    q, width = beam_ids.shape
-    dev = beam_ids.device
-    rows = torch.arange(q, device=dev)
-    budgets = _as_lanes(budgets, q, dev)
-    hop_limits = _as_lanes(hop_limits, q, dev)
-
-    in_budget = torch.arange(width, device=dev)[None, :] < budgets[:, None]
-    frontier_open = ((~beam_exp) & (beam_ids != INVALID) & in_budget).any(1)
-    active = (hops < hop_limits) & frontier_open
-
+    rows = torch.arange(beam_ids.shape[0], device=beam_ids.device)
     cand_d = torch.where(beam_exp | (beam_ids == INVALID) | (~in_budget),
                          torch.inf, beam_d)
     j = torch.argmin(cand_d, dim=1)
-    u = beam_ids[rows, j]
     new_exp = beam_exp.clone()
     new_exp[rows, j] = True
+    return (beam_ids, beam_d, new_exp, visited, hops, evals), beam_ids[rows, j]
 
-    nbrs = adj[u.clamp_min(0).long()]                       # (Q, R)
+
+def _expand(state, u, nbrs, ctxs, table, kind):
+    """Expand each lane's selected frontier ``u`` (Q,) with its adjacency
+    row ``nbrs`` (Q, R): the visited test, the neighbours' distances, the
+    visited bits and the keep-best-L merge (a stable argsort).  Returns the
+    state of every lane after the hop."""
+    beam_ids, beam_d, beam_exp, visited, hops, evals = state
+    width = beam_ids.shape[1]
     valid = (nbrs != INVALID) & (u != INVALID)[:, None]
     safe = nbrs.clamp_min(0)
     word_idx = (safe >> 5).long()
@@ -124,20 +119,62 @@ def beam_step_ref(state, ctxs, adj, table, budgets, hop_limits, *, kind):
     nbr_ids = torch.where(valid, nbrs, INVALID)
     cat_ids = torch.cat([beam_ids, nbr_ids], 1)
     cat_d = torch.cat([beam_d, d], 1)
-    cat_exp = torch.cat([new_exp, torch.zeros_like(valid)], 1)
+    cat_exp = torch.cat([beam_exp, torch.zeros_like(valid)], 1)
     order = torch.argsort(cat_d, dim=1, stable=True)[:, :width]
-    m_ids = torch.gather(cat_ids, 1, order)
-    m_d = torch.gather(cat_d, 1, order)
-    m_exp = torch.gather(cat_exp, 1, order)
+    return (torch.gather(cat_ids, 1, order), torch.gather(cat_d, 1, order),
+            torch.gather(cat_exp, 1, order), new_visited, hops + 1,
+            evals + valid.sum(1, dtype=torch.int32))
 
-    a = active[:, None]
-    return (torch.where(a, m_ids, beam_ids),
-            torch.where(a, m_d, beam_d),
-            torch.where(a, m_exp, beam_exp),
-            torch.where(a, new_visited, visited),
-            torch.where(active, hops + 1, hops),
-            torch.where(active, evals + valid.sum(1, dtype=torch.int32),
-                        evals))
+
+def _freeze(active, new, old):
+    """Lanes where ``active`` (Q,) is False keep their ``old`` leaves."""
+    return tuple(torch.where(active.view(-1, *([1] * (n.dim() - 1))), n, o)
+                 for n, o in zip(new, old))
+
+
+def beam_step_ref(state, ctxs, adj, table, budgets, hop_limits, *, kind):
+    """One beam-walk hop over a batch of lanes (plain PyTorch oracle).
+
+    ``state`` is (beam_ids (Q, L) int32, beam_d (Q, L) float32, beam_exp
+    (Q, L) bool, visited (Q, ceil(N/32)) int32 holding uint32 bit patterns,
+    hops (Q,) int32, evals (Q,) int32).  ``kind="exact"``: ``table`` is
+    (N, D) float32 vectors and ``ctxs`` (Q, D) queries; ``kind="pq"``:
+    ``table`` is (N, M) uint8 codes and ``ctxs`` (Q, M, K) ADC LUTs.
+    Returns the post-hop state as new tensors; lanes whose frontier is closed
+    or hop limit reached come back unchanged.
+    """
+    if kind not in ("exact", "pq"):
+        raise ValueError(f"unknown beam_step kind {kind!r}")
+    active = lane_active(state[0], state[2], state[4], budgets, hop_limits)
+    sel, u = _select(state, _in_budget(state[0], budgets))
+    new = _expand(sel, u, adj[u.clamp_min(0).long()], ctxs, table, kind)
+    return _freeze(active, new, state)
+
+
+def beam_hop_rows_ref(state, u, active, rows, ctxs, table, budgets,
+                      hop_limits, *, kind):
+    """One out-of-core hop with the adjacency rows supplied per lane (plain
+    version of the row-fed kernel; the reference's ``ooc_hop_batch``).
+
+    Each ``active`` (Q,) bool lane expands its already-selected frontier
+    ``u`` (Q,) int32 with ``rows`` (Q, R) int32 (= ``adj[u]``; rows of
+    inactive lanes are not read) and the others keep their state; then
+    every lane's activity is recomputed (``lane_active``) and each active
+    lane selects and marks its next frontier.  Returns ``(state, u_next,
+    active_next)`` with ``u_next`` INVALID on lanes that cannot move.
+    ``active=None`` (``u``, ``rows``, ``ctxs`` and ``table`` unused) means
+    every lane inactive: the select alone, the reference's
+    ``ooc_select_batch``.  Tables and state as :func:`beam_step_ref`.
+    """
+    if kind not in ("exact", "pq"):
+        raise ValueError(f"unknown beam_step kind {kind!r}")
+    if active is not None:
+        new = _expand(state, u, rows, ctxs, table, kind)
+        state = _freeze(active, new, state)
+    act = lane_active(state[0], state[2], state[4], budgets, hop_limits)
+    sel, u_next = _select(state, _in_budget(state[0], budgets))
+    return (_freeze(act, sel, state),
+            torch.where(act, u_next, torch.full_like(u_next, INVALID)), act)
 
 
 def beam_walk_ref(state, ctxs, adj, table, budgets, hop_limits, *, kind,

@@ -1,6 +1,6 @@
-"""The serving engine: one API over the exact and tiered backends, with a
-staged double-buffered batch pipeline (port of :mod:`repro.serving.engine`,
-without the out-of-core and distributed backends).
+"""The serving engine: one API over the exact, tiered and out-of-core
+backends, with a staged double-buffered batch pipeline (port of
+:mod:`repro.serving.engine`, without the distributed backend).
 
 * :class:`SearchEngine` wraps a backend behind ``search`` (one batch) and
   ``search_batches`` (a stream, double-buffered).
@@ -17,6 +17,11 @@ without the out-of-core and distributed backends).
   tier's worker thread while batch i+1's walk runs on the card.  Each gather
   then kicks one non-blocking promotion tick of the tier's hot tier, and
   the tier's counters ride in ``BatchResult.extras["slow_tier"]``.
+* Out-of-core: :class:`OutOfCoreBackend` keeps only the PQ codes on the
+  card and reads the adjacency too from the block store, a hop at a time
+  (:func:`repro_torch.index.disk.ooc_walk`); the pipeline grows a
+  *walk-prefetch* stage ahead of the continue, which submits the reads of
+  the continue's first frontier to the tier's workers (cache warm-up only).
 
 On the card every stage runs on the engine's own CUDA stream, and each
 flight records an event after its device work; the gather waits on it
@@ -46,6 +51,7 @@ from repro_torch import resolve_device
 from repro_torch.core import calibrate as calib
 from repro_torch.core import search as search_mod
 from repro_torch.index import disk as disk_mod
+from repro_torch.pq import PqCodebook
 from repro_torch.serving import pipeline as pipe
 
 
@@ -313,6 +319,136 @@ class TieredBackend(_StagedRerankMixin):
         return ids, d2, stats, None
 
 
+class OutOfCoreBackend(_StagedRerankMixin):
+    """Serve an index larger than device memory: only the PQ codes (and the
+    codebook and entry) live on the card to steer the walk; the adjacency
+    and the full-precision vectors stay in the block store and are read at
+    walk and rerank time through the slow tier's worker threads.
+
+    The walk runs the out-of-core drivers of :mod:`repro_torch.index.disk`
+    (:func:`~repro_torch.index.disk.ooc_probe` /
+    :func:`~repro_torch.index.disk.ooc_continue`): each hop is split at the
+    frontier selection, so the host reads ``adj[u]`` from the store between
+    two launches of the row-fed ``beam_step`` hop, with ``io_groups`` lane
+    groups round-robined so one group's reads overlap another's hop.
+    Results are bit-identical to the in-memory :class:`TieredBackend`.
+
+    ``walk_prefetches`` makes the engine run a walk-prefetch stage: up to
+    ``io_depth`` of the continue's first-frontier rows are submitted to the
+    tier's workers one stage before the continue (cache warm-up, never a
+    change of result).  ``timings`` (None, or a dict) collects the walk's
+    host times (:func:`repro_torch.index.disk.ooc_walk`).
+    """
+
+    prefetches = True        # the rerank's fetch is always a disk read here
+    walk_prefetches = True
+
+    def __init__(self, codes, codebook, entry, slow_tier, *,
+                 io_groups: int = 2, io_depth: int = 32, device="cuda"):
+        self.device = resolve_device(device)
+        self.io_groups = io_groups
+        self.io_depth = io_depth
+        self.timings: dict | None = None
+        self.slow_tier = None
+        self.update(codes, codebook, entry, slow_tier=slow_tier)
+
+    def update(self, codes, codebook, entry, *, slow_tier) -> None:
+        """Swap the steering arrays and the block-store tier in place (the
+        index refresh path).  ``slow_tier`` is a required keyword: the store
+        holds the graph itself here, so a refresh that does not name it
+        would serve a stale graph.  A replaced tier is closed; the tier's
+        prefetch pool is sized to ``io_groups`` unless it was given a
+        worker count."""
+        if slow_tier is None or not getattr(slow_tier, "is_disk", False):
+            raise ValueError(
+                "out-of-core serving needs a BlockSlowTier over a store "
+                "holding the graph's adjacency and vectors")
+        old = self.slow_tier
+        self.codes = torch.as_tensor(codes, dtype=torch.uint8,
+                                     device=self.device)
+        self.codebook = PqCodebook(torch.as_tensor(
+            codebook.centroids, dtype=torch.float32, device=self.device))
+        self.entry = torch.as_tensor(entry, dtype=torch.int32,
+                                     device=self.device)
+        self.slow_tier = slow_tier
+        # One worker per group lets one group's reads overlap another's hop.
+        slow_tier.default_io_workers(self.io_groups)
+        if old is not None and old is not slow_tier:
+            old.close()
+
+    def close(self) -> None:
+        """Shut down the slow tier's threads (idempotent)."""
+        if self.slow_tier is not None:
+            self.slow_tier.close()
+
+    def admit(self, queries) -> torch.Tensor:
+        """The LUTs of :meth:`TieredBackend.admit`, by the same ops."""
+        q = torch.as_tensor(queries, dtype=torch.float32, device=self.device)
+        return disk_mod.codebook_luts(self.codebook, q)
+
+    def num_nodes(self) -> int:
+        return int(self.codes.shape[0])
+
+    def probe(self, ctxs, budget_cfg, excl=None):
+        return disk_mod.ooc_probe(
+            self.codes, ctxs, self.entry, self.num_nodes(), budget_cfg,
+            self.slow_tier, io_groups=self.io_groups, excl=excl,
+            timings=self.timings)
+
+    def continue_fn(self, budget_cfg):
+        def cont(st, c, b, h):
+            return disk_mod.ooc_continue(
+                self.codes, st, c, b, h, budget_cfg.l_max, self.slow_tier,
+                io_groups=self.io_groups, timings=self.timings)
+        return cont
+
+    def prefetch_walk(self, probe_state, budgets, hop_limits):
+        """Submit the reads of the continue's first frontier (at most
+        ``io_depth`` nodes) to the tier's workers; returns the future, or
+        None when every lane converged in the probe."""
+        u = disk_mod.ooc_first_frontier(probe_state, budgets, hop_limits,
+                                        int(probe_state[0].shape[1]))
+        u = u[u >= 0][:self.io_depth]
+        if u.size == 0:
+            return None
+        return self.slow_tier.prefetch_adj(u)
+
+    def prefetch_rerank(self, parts):
+        """See :meth:`TieredBackend.prefetch_rerank`."""
+        return self.slow_tier.prefetch(np.asarray(parts[0]))
+
+    def rerank(self, beam_ids, beam_d, queries, k: int, prefetch=None):
+        q = torch.as_tensor(queries, dtype=torch.float32, device=self.device)
+        return disk_mod.rerank_with_slow_tier(
+            self.slow_tier, beam_ids, q, k,
+            prefetched=None if prefetch is None else prefetch.result())
+
+    def finish_extras(self) -> dict[str, Any]:
+        return {"slow_tier": self.slow_tier.stats()}
+
+    def promotion_tick(self):
+        """See :meth:`TieredBackend.promotion_tick`; here promoted rows
+        serve the walk's adjacency reads too."""
+        return self.slow_tier.promotion_tick()
+
+    def fixed(self, queries, *, beam_width: int, max_hops: int, k: int,
+              excl=None):
+        q = torch.as_tensor(queries, dtype=torch.float32, device=self.device)
+        ctxs = disk_mod.codebook_luts(self.codebook, q)
+        states = search_mod.ooc_init_pq(self.codes, ctxs, self.entry,
+                                        self.num_nodes(), beam_width,
+                                        excl=excl)
+        state = disk_mod.ooc_walk(self.codes, states, ctxs, beam_width,
+                                  max_hops, beam_width, self.slow_tier,
+                                  self.io_groups, self.timings)
+        if excl is not None:
+            state = search_mod._scrub_state(state, excl)
+        ids, d2 = disk_mod.rerank_with_slow_tier(self.slow_tier, state[0],
+                                                 q, k)
+        return ids, d2, search_mod.SearchStats(hops=state[4],
+                                               dist_evals=state[5]), None
+
+
 @dataclasses.dataclass
 class _InFlight:
     """One admitted batch whose device work is dispatched, not collected.
@@ -335,6 +471,7 @@ class _InFlight:
     event: Any = None          # CUDA event after the flight's device work
     parts: Any = None          # prefetch stage: continue outputs, host numpy
     prefetch: Any = None       # prefetch stage: the slow tier's fetch future
+    walk_prefetch: Any = None  # future of the first-frontier adjacency reads
 
 
 class SearchEngine:
@@ -372,7 +509,10 @@ class SearchEngine:
         """Serve one batch, all stages back to back.  ``filter`` is a boolean
         allowed mask over the index's nodes, (n,) or (Q, n), enforced
         in-graph: out-of-filter nodes never enter the beam."""
-        f = self._schedule(self._dispatch(queries, filter))
+        f = self._dispatch(queries, filter)
+        if self._walk_prefetching():
+            f = self._walk_prefetch(f)
+        f = self._schedule(f)
         if self._prefetching():
             f = self._prefetch(f)
         return self._gather(f)
@@ -449,8 +589,12 @@ class SearchEngine:
         every in-flight batch one stage, newest first, and the oldest
         finished batch is gathered.  A disk slow tier adds the prefetch
         stage, so three batches are in flight: batch i's probe, batch i-1's
-        continue and batch i-2's block reads."""
+        continue and batch i-2's block reads.  The out-of-core backend adds
+        the walk-prefetch stage first: a batch's first-frontier reads go to
+        the tier's workers one stage before its continue."""
         stages = [self._schedule]
+        if self._walk_prefetching():
+            stages.insert(0, self._walk_prefetch)
         if self._prefetching():
             stages.append(self._prefetch)
         flight: list[list] = []
@@ -490,6 +634,8 @@ class SearchEngine:
         """Run the remaining stages of a :meth:`begin` flight; ``begin`` +
         ``finish_from`` is exactly :meth:`search`."""
         if self._staged() and f.dispatched is None:
+            if self._walk_prefetching() and f.walk_prefetch is None:
+                f = self._walk_prefetch(f)
             f = self._schedule(f)
         if self._prefetching() and f.prefetch is None:
             f = self._prefetch(f)
@@ -582,6 +728,16 @@ class SearchEngine:
                     f.ceilings, budgets_np=sched, quantum=self.pad_quantum)
         return self._mark(f)
 
+    def _walk_prefetch(self, f: _InFlight) -> _InFlight:
+        """Out-of-core stage: submit the reads of the continue's first
+        frontier (at most the backend's ``io_depth`` nodes) to the tier's
+        workers, where they land in its cache while other batches run.
+        Cache warm-up only; results never depend on it."""
+        with self._on_stream():
+            f.walk_prefetch = f.backend.prefetch_walk(
+                f.probe_state, f.budgets, f.hop_limits)
+        return f
+
     def _prefetch(self, f: _InFlight) -> _InFlight:
         """Disk-tier stage: wait for the flight's continue work (its event),
         copy the continue outputs to the host and submit the rerank's block
@@ -609,6 +765,8 @@ class SearchEngine:
         non-blocking promotion tick of a disk tier's hot tier, which digests
         the frequencies this batch recorded while later batches run."""
         res = self._collect(f)
+        if f.walk_prefetch is not None:
+            f.walk_prefetch.result()     # a warm-up, read for its errors
         self.backend.promotion_tick()
         return res
 
@@ -634,6 +792,11 @@ class SearchEngine:
     def _prefetching(self) -> bool:
         """Whether the pipeline runs the disk prefetch stage."""
         return self._staged() and self.backend.prefetches
+
+    def _walk_prefetching(self) -> bool:
+        """Whether the pipeline runs the out-of-core walk-prefetch stage."""
+        return (self._staged()
+                and getattr(self.backend, "walk_prefetches", False))
 
     # ------------------------------------------------------ live reconfigure
 

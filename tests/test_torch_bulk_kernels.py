@@ -288,7 +288,8 @@ def test_estimate_dataset_lid_with_duplicates(jx, integer):
 
 def test_cpu_tensors_run_plain_versions_and_count_nothing():
     before = ops.launch_counts()
-    assert set(before) == {"beam_step.exact", "beam_step.pq", "l2_distance",
+    assert set(before) == {"beam_step.exact", "beam_step.pq",
+                           "beam_step.pq_rows", "l2_distance",
                            "topk", "lid_estimate", "pq_scan",
                            "decode_attention"}
     q, x = torch.rand(5, 8), torch.rand(40, 8)
