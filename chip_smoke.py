@@ -110,6 +110,29 @@ Phases, each printed on its own lines; any failure exits non-zero:
    first, ``torch.profiler`` over one batch gives the row-fed kernel's
    device ms per launch (printed beside each run's host ms a host hop)
    and the device's busy share;
+3f. [live] the write path at phase 3's data: ``LiveIndex`` over the first
+   990,000 rows (``build_online_mcgi``: the bootstrap through
+   ``l2_distance`` + ``topk``, the rewire walks through ``beam_step``
+   exact; a PQ tier; a block store of 4 records a page in a temporary
+   directory; the budget law of phase 3), the stream served one
+   ``LiveIndex.search`` a batch; the last 10,000 rows inserted in 10 calls
+   of 1,000, each then found at rank 0 with d2 = 0, and the stream served
+   against phase 3's ground truth; 10,000 base ids tombstoned (drawn from
+   --seed), the stream served and walked by ``DeltaTier.search_exact``;
+   ``merge_async`` while the main thread serves the stream at half its
+   closed-loop load; the stream at
+   the merge boundary; ``save`` and ``load_lineage``.  Fails if a deleted
+   id is returned before, during or after the merge, an inserted vector
+   is not its own rank-0 result with d2 = 0 right after its insert, one
+   the walk finds after the merge (at least 90% of them: no delta scan
+   at a merge boundary) carries another external id, recall@10 < 0.75 at any stage (phase 3's tiered recall printed
+   beside it), the merge does not publish generation 1, the lineage is
+   wrong, or ``beam_step`` exact or pq, ``l2_distance`` or ``topk`` was
+   never launched on the path (ground truths not counted).  Prints the
+   online build's phases, inserts/s, each stage's QPS and batch p50 / p99,
+   the merge's seconds and the batches served during it (at half the
+   closed loop's load: each batch is followed by a pause as long as it
+   took);
 4. the LM paths, with the MCGI world freed — qwen2-7b at full width
    (``repro_torch/configs/qwen2_7b.py``: 28 layers, d_model 3584, 28 query
    and 4 KV heads, d_ff 18944, vocab 152064, QKV bias), weights drawn from
@@ -206,6 +229,11 @@ PREFILL_REL_L2 = 5e-2
 # (cell, batch, S): decode_32k's batch is cut from 128 (224 GiB of cache).
 LM_CELLS = (("decode_32k", 16, 32768), ("long_500k", 1, 524288))
 LM_CELL_STEPS = 16
+LIVE_INSERTS, LIVE_INSERT_CALLS = 10_000, 10     # [live]: the last 10k rows
+LIVE_DELETES = 10_000
+LIVE_RECALL_FLOOR = 0.75
+LIVE_SELF_FLOOR = 0.9     # self-queries the walk finds after the merge
+LIVE_MERGE_DUTY = 0.5     # share of the merge's time spent serving
 
 
 def sift1m():
@@ -1391,7 +1419,8 @@ def main_path(dev, n: int, n_queries: int, batch: int, build_batch: int,
     compare_serving(eng_t, serving.SearchEngine(tiered, budget, k=cfg.k,
                                                 num_buckets=4), batches)
     return counts, dict(n=n, qn=qn, gt=gt, batches=batches, gts=gts,
-                        tiered=tiered, exact=exact)
+                        tiered=tiered, exact=exact,
+                        tiered_recall=rec)
 
 
 # --------------------------------------------------------------- phase 3b
@@ -1967,6 +1996,306 @@ def ooc_path(world, stores: dict, card: str) -> dict:
     return counts
 
 
+# --------------------------------------------------------------- phase 3f
+
+def live_serve(name, live, batches, gts, gone, card: str) -> dict:
+    """Serve ``batches`` through ``LiveIndex.search`` one call a batch;
+    recall@10 of the external ids against ``gts`` (external ids too).  No
+    result may hold an id of ``gone`` (the tombstoned ids) or fall outside
+    the ids inserted so far."""
+    import numpy as np
+
+    lat, recalls = [], []
+    t_all = time.perf_counter()
+    for b, g in zip(batches, gts):
+        t0 = time.perf_counter()
+        ext, d2 = live.search(b)
+        lat.append((time.perf_counter() - t0) * 1e3)
+        check_live_result(name, live, ext, d2, b.shape[0], gone)
+        recalls.append(float(np.mean([np.isin(e, t).mean()
+                                      for e, t in zip(ext, g)])))
+    secs = time.perf_counter() - t_all
+    m = dict(recall=float(np.mean(recalls)),
+             qps=sum(b.shape[0] for b in batches) / secs,
+             p50_ms=float(np.percentile(lat, 50)),
+             p99_ms=float(np.percentile(lat, 99)))
+    log(f"[live] {name}: recall@10={m['recall']:.4f} qps={m['qps']:.1f} "
+        f"batch p50={m['p50_ms']:.1f}ms p99={m['p99_ms']:.1f}ms "
+        f"({len(batches)} batches of {batches[0].shape[0]}; {card})")
+    return m
+
+
+def check_live_result(name, live, ext, d2, nq: int, gone) -> None:
+    import numpy as np
+
+    if ext.shape != (nq, live.k):
+        raise AssertionError(f"[live] {name}: result shape {ext.shape}")
+    if not ((ext >= -1) & (ext < live._next_ext)).all():
+        raise AssertionError(f"[live] {name}: an external id outside "
+                             f"[-1, {live._next_ext})")
+    if not np.isfinite(d2[ext >= 0]).all():
+        raise AssertionError(f"[live] {name}: non-finite d2 for a valid id")
+    if gone is not None and np.isin(ext, gone).any():
+        raise AssertionError(f"[live] {name}: a deleted id was returned")
+
+
+def live_gt(x, live_rows, queries, k: int):
+    """Ground truth over the live rows of ``x`` (external id = row of x):
+    ``brute_force_topk`` over those rows, positions mapped back."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import distance
+
+    rows = torch.as_tensor(live_rows, device=x.device)
+    q = torch.as_tensor(queries, device=x.device)
+    _, pos = distance.brute_force_topk(q, x[rows], k)
+    return np.asarray(live_rows)[pos.cpu().numpy()]
+
+
+def live_path(world, tmp: str, card: str, seed: int,
+              inserts: int = LIVE_INSERTS, deletes: int = LIVE_DELETES
+              ) -> dict:
+    """[live]: the write path at phase 3's data.  ``LiveIndex`` over the
+    first N - ``inserts`` rows (online build, PQ tier, a packed block store
+    in ``tmp``), the stream served; the last ``inserts`` rows inserted in
+    ``LIVE_INSERT_CALLS`` calls and each found at rank 0 with d2 = 0; the
+    stream served again; ``deletes`` base ids tombstoned and the stream
+    served (engine and ``DeltaTier.search_exact``); ``merge_async`` while
+    the stream is served; the stream at the merge boundary; ``save`` and
+    the lineage.  Returns the launch counts of the path (the ground
+    truths' launches taken out)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import build
+    from repro_torch.index import load_lineage
+    from repro_torch.index.delta import LiveIndex
+    from repro_torch.kernels import ops
+
+    cfg = sift1m()
+    x = world["tiered"].index.vectors                 # phase 3's rows
+    n, dev = x.shape[0], x.device
+    n_base = n - inserts
+    batches, gts, qn = world["batches"], world["gts"], world["qn"]
+    rng = np.random.default_rng(seed + 19)
+    calib = qn[rng.choice(qn.shape[0], min(CALIB_SAMPLE, qn.shape[0]),
+                          replace=False)]
+    ref = world["tiered_recall"]
+    checks = {k: 0 for k in ops.launch_counts()}
+
+    def uncounted(fn):
+        before = ops.launch_counts()
+        out = fn()
+        for k_, v in ops.launch_counts().items():
+            checks[k_] += v - before[k_]
+        return out
+
+    def split(gt):
+        return [gt[s:s + b.shape[0]] for s, b in zip(
+            np.cumsum([0] + [b.shape[0] for b in batches[:-1]]), batches)]
+
+    ops.reset_launch_counts()
+    bcfg = build.BuildConfig(degree=cfg.degree, beam_width=cfg.l_build,
+                             alpha_min=cfg.alpha_min,
+                             alpha_max=cfg.alpha_max, batch=BUILD_BATCH,
+                             seed=seed)
+    t0 = time.perf_counter()
+    live = LiveIndex(x[:n_base], bcfg, budget_cfg=cfg.beam_budget(),
+                     k=cfg.k, beam_width=cfg.l_search, max_hops=cfg.max_hops,
+                     m_pq=M_PQ, store_dir=tmp, nodes_per_block=4,
+                     merge_threshold=10 ** 12, calib=calib,
+                     recall_target=TIERED_TARGET, device=dev)
+    t_init = time.perf_counter() - t0
+    try:
+        bt, delta = live.build_timings, live._state.delta
+        store = os.path.join(tmp, "live.g0.blocks")
+        log(f"[live] LiveIndex over {n_base} rows in {t_init:.1f}s: online "
+            f"build (R={bcfg.degree} L={bcfg.beam_width} batch={bcfg.batch}) "
+            + " ".join(f"{k}={bt[k]:.1f}s" for k in
+                       ("bootstrap", "rewire_walks", "prune",
+                        "reverse_insert"))
+            + f"; bootstrap mu={float(delta.mu)!r} "
+            f"sigma={float(delta.sigma)!r}; PQ tier m={M_PQ} "
+            f"{bt['pq_tier']:.1f}s; block_layout {bt['layout']:.1f}s; store "
+            f"{os.path.getsize(store)} bytes (4 records a page) written in "
+            f"{bt['store']:.1f}s; launches "
+            f"{ {k: v for k, v in ops.launch_counts().items() if v} }")
+        log(f"[live] phase 3's in-memory tiered adaptive recall@10 (the "
+            f"offline build, 1M rows): {ref:.4f}, printed beside each "
+            f"[live] recall; gate {LIVE_RECALL_FLOOR}")
+        gt0 = uncounted(lambda: live_gt(x, np.arange(n_base), qn, cfg.k))
+        live.search(qn[:64])                                # warm-up
+        runs = {"base": live_serve("base, 990k-row index" if n_base ==
+                                   990_000 else "base", live, batches,
+                                   split(gt0), None, card)}
+
+        # Inserts: the last rows, in LIVE_INSERT_CALLS calls.
+        per_call = inserts // LIVE_INSERT_CALLS
+        call_ms, new_ids = [], []
+        for c in range(LIVE_INSERT_CALLS):
+            rows = x[n_base + c * per_call:n_base + (c + 1) * per_call]
+            sync(dev)
+            t0 = time.perf_counter()
+            ids = live.insert(rows, auto_merge=False)
+            sync(dev)
+            call_ms.append((time.perf_counter() - t0) * 1e3)
+            new_ids.append(ids)
+        new_ids = np.concatenate(new_ids)
+        if not np.array_equal(new_ids, np.arange(n_base, n_base + inserts)):
+            raise AssertionError("[live] inserts did not get the next "
+                                 "external ids in order")
+        log(f"[live] inserts: {LIVE_INSERT_CALLS} calls of {per_call} "
+            f"vectors: ms a call {[round(v, 1) for v in call_ms]} (p50 "
+            f"{np.percentile(call_ms, 50):.1f} ms); "
+            f"{inserts / (sum(call_ms) / 1e3):.1f} vectors/s ({card})")
+        own = x[n_base:].cpu().numpy()
+
+        def self_query(what: str) -> tuple[np.ndarray, np.ndarray]:
+            """Each inserted vector as a query: its rank-0 external id and
+            whether it came back at d2 = 0."""
+            firsts, exact = [], []
+            for s in range(0, own.shape[0], SERVE_BATCH):
+                ext, d2 = live.search(own[s:s + SERVE_BATCH])
+                check_live_result(what, live, ext, d2,
+                                  min(SERVE_BATCH, own.shape[0] - s), None)
+                firsts.append(ext[:, 0])
+                exact.append(d2[:, 0] == 0)
+            return np.concatenate(firsts), np.concatenate(exact)
+
+        before_merge, hit = self_query("self-queries after the inserts")
+        if not (np.array_equal(before_merge, new_ids) and hit.all()):
+            raise AssertionError("[live] an inserted vector is not its own "
+                                 "rank-0 result with d2 = 0 (bounded "
+                                 "staleness)")
+        log(f"[live] self-queries after the inserts: all {own.shape[0]} "
+            f"inserted vectors found at rank 0 with d2 = 0")
+        runs["inserted"] = live_serve(
+            "after inserts (live = phase 3's 1M rows; phase 3's ground "
+            "truth)", live, batches, gts, None, card)
+
+        # Deletes: base external ids from the seed.
+        gone = np.sort(rng.choice(n_base, deletes, replace=False))
+        t0 = time.perf_counter()
+        live.delete(gone)
+        log(f"[live] deleted {deletes} base ids in "
+            f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+        alive = np.setdiff1d(np.arange(n), gone)
+        gt1 = uncounted(lambda: live_gt(x, alive, qn, cfg.k))
+        runs["deleted"] = live_serve("after deletes", live, batches,
+                                     split(gt1), gone, card)
+        st = live._state
+        recalls, t0 = [], time.perf_counter()
+        for b, g in zip(batches, split(gt1)):
+            ids, d2, _ = st.delta.search_exact(b, beam_width=cfg.l_search,
+                                               k=cfg.k,
+                                               max_hops=cfg.max_hops)
+            ext = np.where(ids.cpu().numpy() >= 0,
+                           st.ext_of[ids.clamp_min(0).cpu().numpy()], -1)
+            check_live_result("search_exact", live, ext, d2.cpu().numpy(),
+                              b.shape[0], gone)
+            recalls.append(float(np.mean([np.isin(e, t).mean()
+                                          for e, t in zip(ext, g)])))
+        secs = time.perf_counter() - t0
+        runs["search_exact"] = dict(recall=float(np.mean(recalls)),
+                                    qps=qn.shape[0] / secs)
+        log(f"[live] DeltaTier.search_exact over the mutated graph (beam "
+            f"{cfg.l_search}, batches of {batches[0].shape[0]}): recall@10="
+            f"{runs['search_exact']['recall']:.4f} "
+            f"qps={runs['search_exact']['qps']:.1f}; no deleted id")
+
+        # Merge under traffic.
+        old_mu, timed = float(st.delta.mu), {}
+        merge = live.merge
+
+        def timed_merge():
+            t = time.perf_counter()
+            gen = merge()
+            timed["secs"] = time.perf_counter() - t
+            return gen
+
+        live.merge = timed_merge
+        during, served, nq = [], 0, 0
+        t_all = time.perf_counter()
+        thread = live.merge_async()
+        while thread.is_alive():
+            b = batches[served % len(batches)]
+            t0 = time.perf_counter()
+            ext, d2 = live.search(b)
+            secs = time.perf_counter() - t0
+            during.append(secs * 1e3)
+            check_live_result("during the merge", live, ext, d2, b.shape[0],
+                              gone)
+            served, nq = served + 1, nq + b.shape[0]
+            # Offer half the closed loop's load: the merge's build and the
+            # serving threads share the GIL, and back to back serving slowed
+            # the build 6.7x.
+            time.sleep(secs * (1 / LIVE_MERGE_DUTY - 1))
+        thread.join()
+        t_all = time.perf_counter() - t_all
+        recal = (f"fired (lam {live.engine.budget_cfg.lam:.4f})"
+                 if live.lineage.get("recalibrations") else "not fired")
+        live.merge = merge
+        if live.generation != 1 or not os.path.exists(
+                os.path.join(tmp, "live.g1.blocks")):
+            raise AssertionError("[live] the merge did not publish "
+                                 "generation 1 on live.g1.blocks")
+        bt, lin = live.build_timings, live.lineage
+        log(f"[live] merge_async: {timed['secs']:.1f}s (online build "
+            + " ".join(f"{k}={bt[k]:.1f}s" for k in
+                       ("bootstrap", "rewire_walks", "prune",
+                        "reverse_insert"))
+            + f", PQ {bt['pq_tier']:.1f}s, layout {bt['layout']:.1f}s, "
+            f"store {bt['store']:.1f}s) over {lin['live']} live rows; "
+            f"{served} batches served during it, each followed by a pause "
+            f"of {1 / LIVE_MERGE_DUTY - 1:g}x its time: p50="
+            f"{np.percentile(during, 50):.1f}ms p99="
+            f"{np.percentile(during, 99):.1f}ms, {nq / t_all:.1f} qps over "
+            f"the merge's wall time; no "
+            f"deleted id; generation 1 on live.g1.blocks; mu {old_mu!r} -> "
+            f"{lin['mu']!r} (drift threshold {live.drift_threshold}): "
+            f"recalibration {recal} ({card})")
+        # At the merge boundary the search is the engine's walk alone (no
+        # exact delta scan), so a self-query can miss; every vector it
+        # finds must carry the external id it had before the merge.
+        after_merge, hit = self_query("self-queries after the merge")
+        if not np.array_equal(after_merge[hit], before_merge[hit]):
+            raise AssertionError("[live] external ids moved across the "
+                                 "merge")
+        if hit.mean() < LIVE_SELF_FLOOR:
+            raise AssertionError(f"[live] the walk found {hit.mean():.4f} of "
+                                 f"the inserted vectors after the merge "
+                                 f"(< {LIVE_SELF_FLOOR})")
+        log(f"[live] self-queries after the merge: {int(hit.sum())} of "
+            f"{hit.size} inserted vectors found at rank 0 with d2 = 0 by the "
+            f"walk (no delta scan at a merge boundary), each under its "
+            f"external id from before the merge")
+        runs["merged"] = live_serve("at the merge boundary", live, batches,
+                                    split(gt1), gone, card)
+        npz = os.path.join(tmp, "live.npz")
+        live.save(npz)
+        lin = load_lineage(npz)
+        want = dict(generation=1, merges=1, inserts=inserts, deletes=deletes)
+        if {k: lin.get(k) for k in want} != want:
+            raise AssertionError(f"[live] lineage {lin} != {want}")
+        log(f"[live] save(): lineage {lin}")
+    finally:
+        live.close()
+    counts = {k: v - checks[k] for k, v in ops.launch_counts().items()}
+    log(f"[live] kernel launches on the live path (ground truths taken "
+        f"out: {({k: v for k, v in checks.items() if v})}): "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    for name in ("beam_step.exact", "beam_step.pq", "l2_distance", "topk"):
+        if counts[name] == 0:
+            raise AssertionError(f"[live] {name} was never launched on the "
+                                 f"live path")
+    for name, m in runs.items():
+        if m["recall"] < LIVE_RECALL_FLOOR:
+            raise AssertionError(f"[live] {name}: recall@10 "
+                                 f"{m['recall']:.4f} < {LIVE_RECALL_FLOOR}")
+    return counts
+
+
 # ------------------------------------------------------------- phase 4: LM
 
 def lm_params(dev, seed: int):
@@ -2287,6 +2616,13 @@ def main(argv=None) -> int:
     try:
         paths["disk"], stores = disk_path(world, tmp)
         paths["ooc"] = ooc_path(world, stores, card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    tmp = tempfile.mkdtemp(prefix="mcgi-live-")
+    try:
+        cut = min(LIVE_INSERTS, args.n // 100)
+        paths["live"] = live_path(world, tmp, card, args.seed, inserts=cut,
+                                  deletes=cut)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     del world

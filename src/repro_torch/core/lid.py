@@ -45,6 +45,10 @@ class LidProfile:
     mu: torch.Tensor
     sigma: torch.Tensor
 
+    def zscore(self, lid: torch.Tensor) -> torch.Tensor:
+        """Eq. 7's z-score, sigma clamped at 1e-6."""
+        return (lid - self.mu) / self.sigma.clamp_min(1e-6)
+
 
 def calibrate(lid: torch.Tensor) -> LidProfile:
     """Population statistics over per-point LID estimates.  sigma is the
@@ -62,6 +66,30 @@ def estimate_dataset_lid(x: torch.Tensor, k: int = 16, chunk_q: int = 4096,
     d2 < 1e-24)."""
     d, _ = dist_mod.knn_graph(x, k=k, chunk_q=chunk_q, chunk=chunk)
     return calibrate(ops.lid_estimate(d))
+
+
+def bootstrap_stats(x: torch.Tensor, generator: torch.Generator | None = None,
+                    sample: int = 2048, k: int = 16, metric: str = dist_mod.L2,
+                    *, sample_idx=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Online-MCGI Phase 1 (Algorithm 2): (mu, sigma) from a sample.
+
+    ``sample`` points, drawn without replacement from ``generator`` (one
+    ``randperm``; torch's default generator when None), are queried
+    against the *full* dataset with :func:`brute_force_topk` (the
+    ``l2_distance`` and ``topk`` kernels on the card), so the radii are
+    unbiased; the self match is dropped by id.  ``sample_idx`` takes a
+    given draw instead (torch cannot reproduce ``jax.random.choice``).
+    Returns the mean and population std of the sample's LID estimates."""
+    n, dev = x.shape[0], x.device
+    if sample_idx is None:
+        sample_idx = torch.randperm(n, generator=generator,
+                                    device=dev)[:min(sample, n)]
+    idx = torch.as_tensor(sample_idx, device=dev).long()
+    d, ids = dist_mod.brute_force_topk(x[idx], x, k + 1, metric=metric)
+    d = torch.where(ids == idx[:, None], torch.inf, d)
+    d = torch.sort(d, dim=1).values[:, :k]
+    lid = lid_from_dists(d, squared=(metric == dist_mod.L2))
+    return lid.mean(), lid.std(correction=0)
 
 
 def online_lid(cand_dists: torch.Tensor, k: int) -> torch.Tensor:

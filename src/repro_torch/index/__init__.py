@@ -1,5 +1,7 @@
-"""Index tiers, the block store, serialisation and the out-of-core walk
-(port of :mod:`repro.index`, without the delta tier)."""
+"""Index tiers, the block store, serialisation, the out-of-core walk and
+the delta tier (port of :mod:`repro.index`; the delta tier and
+:class:`~repro_torch.index.delta.LiveIndex` live in
+:mod:`repro_torch.index.delta`)."""
 from repro_torch.index.blockstore import (  # noqa: F401
     BlockChecksumError, BlockStore, BlockStoreError, BlockStoreFormatError,
     BlockStoreTruncatedError, ensure_block_store, write_block_store)

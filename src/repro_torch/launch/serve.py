@@ -9,7 +9,7 @@ recall@k, QPS, batch latency, mean budget and walk hops.
          [--calibrate [--joint] [--recall-target 0.95] [--calib-sample 256]]] \\
         [--filter-frac F] [--index I] [--disk D [--cache-nodes 4096] \\
          [--pin-nodes 256] [--hot-nodes 0 [--hot-chunk 256] \\
-         [--freq-decay 0.5]] [--io-workers W]]
+         [--freq-decay 0.5]] [--io-workers W]] [--online]
 
 Modes: fixed beam, ``--adaptive`` (probe -> budget ->
 bucketed continue -> rerank), ``--buckets``, ``--pipeline`` (the
@@ -21,7 +21,9 @@ and saves it there; ``--disk D`` serves the tiered backend's slow tier from
 a block store at D (written first when absent, unreadable or stale; the
 same results, real block reads, a prefetch stage in the adaptive
 pipeline) and ends with a ``[serve] disk tier:`` line of measured cache and
-read figures.  ``--device cuda`` (default) runs the walk's hops
+read figures.  ``--online`` builds with Online-MCGI (Algorithm 2,
+:func:`repro_torch.core.online.build_online_mcgi`) in place of the offline
+build.  ``--device cuda`` (default) runs the walk's hops
 through the hand-written CUDA kernel; ``--device cpu`` runs the plain
 PyTorch hop.
 """
@@ -83,6 +85,8 @@ def main(argv=None) -> None:
     ap.add_argument("--degree", type=int, default=32)
     ap.add_argument("--l-build", type=int, default=64)
     ap.add_argument("--build-batch", type=int, default=256)
+    ap.add_argument("--online", action="store_true",
+                    help="build with Online-MCGI (Algorithm 2)")
     ap.add_argument("--adaptive", action="store_true",
                     help="per-query adaptive beam budgets (Prop. 4.2)")
     ap.add_argument("--l-min", type=int, default=16)
@@ -135,7 +139,7 @@ def main(argv=None) -> None:
         ap.error("--filter-frac must be in (0, 1]")
 
     from repro_torch import serving
-    from repro_torch.core import build, distance, search
+    from repro_torch.core import build, distance, online, search
     from repro_torch.data import make_dataset
     from repro_torch.index import (DiskTierModel, build_tiered_index,
                                    load_index, open_or_build_slow_tier,
@@ -153,8 +157,9 @@ def main(argv=None) -> None:
                                 batch=args.build_batch)
         t0 = time.time()
         timings: dict = {}
-        graph = build.build_mcgi(x, cfg, progress=print, device=dev,
-                                 timings=timings)
+        build_fn = (online.build_online_mcgi if args.online
+                    else build.build_mcgi)
+        graph = build_fn(x, cfg, progress=print, device=dev, timings=timings)
         index = build_tiered_index(x, graph, m_pq=args.m_pq, device=dev)
         print(f"[serve] built index in {time.time() - t0:.1f}s "
               f"(n={index.n}, "

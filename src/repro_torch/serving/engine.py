@@ -674,16 +674,19 @@ class SearchEngine:
         return f
 
     def _pack_filter(self, flt, nq: int):
+        """Exclusion words of an allowed mask: a (Q, n) mask packs row by
+        row; a shared (n,) mask packs once into one row of words, expanded
+        to (Q, ceil(n/32)) on the device (a view: the walk clones it)."""
         if flt is None:
             return None
         n = self.backend.num_nodes()
         allowed = np.asarray(flt, dtype=bool)
-        if allowed.ndim == 1:
-            allowed = np.broadcast_to(allowed, (nq, n))
-        if allowed.shape != (nq, n):
+        shared = allowed.ndim == 1 and allowed.shape == (n,)
+        if not shared and allowed.shape != (nq, n):
             raise ValueError(f"filter mask shape {allowed.shape} != "
                              f"({nq}, {n})")
-        return search_mod.pack_filter(allowed, n, device=self.backend.device)
+        words = search_mod.pack_filter(allowed, n, device=self.backend.device)
+        return words.expand(nq, -1) if shared else words
 
     def _dispatch(self, queries, flt=None) -> _InFlight:
         backend = copy.copy(self.backend)
