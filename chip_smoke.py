@@ -79,6 +79,45 @@ Phases, each printed on its own lines; any failure exits non-zero:
    ``topk_ref`` on the same LUTs, values and ids; then, after the counts
    are read, ``adc_topk(k=100)`` over the first chunk, held to the plain
    versions and to the k=10 run, and timed;
+3g. [door] the serving front door (``repro_torch.serving.server``) over
+   phase 3's in-memory tiered index and stream: two QoS classes, the
+   launcher's ``--serve`` ones (interactive: 8 lanes a dispatch, a 2 ms
+   window, 100 ms deadline, phase 3b's tiered fit; batch: 32 lanes, 20 ms,
+   2,000 ms, the same law at l_min = l_max), each its own engine over the
+   shared backend, the LID center pinned to the stream's mean, at most 256
+   open lanes.  A virtual-clock replay of 4,000 requests (half each class,
+   ``VirtualDispatcher(service_time="measured")``, ``begin`` on the
+   flushing thread): every ``begin`` under CUDA sync debug mode "error"
+   (no host sync), and each class's capacity from its flights' host
+   seconds.  Then the wall clock (``WallClock`` + ``ThreadDispatcher`` at
+   2 workers, ``begin`` on its begin thread, 8 client threads): Poisson at
+   150% of the replay's capacity for 2 s of arrivals (overload: must
+   shed), whose ok + partial lanes a second give the wall-clock door's
+   capacity; Poisson (must not shed) and bursty, 10 s each at half of
+   that; interactive requests in groups of 8 with the deadline between a
+   dispatch's probe and full result (hedges must fire); and 12 held
+   dispatches of 8 from one client, each continue held back by a sleep
+   kernel queued on the engine's stream right after ``begin``, past a
+   20 ms deadline (each partial asked during the hold must return before
+   it ends, so none queued behind the continue; each class engine first
+   serves one flight and its partial outside the door, not counted, so
+   that no first allocation on a new stream's pool falls inside a hold,
+   and the garbage collector is off).  Each run prints per class the statuses,
+   latency p50 / p99, recall@10 of ok and partial lanes, mean budget and
+   hops, dispatches and ``begin``'s host ms, and per run how late the
+   deadline and window timers fired, how long a submit held its client,
+   each hedged flight's full result at the door after its first partial,
+   and the pauses of the full garbage collections during the run.  Fails
+   unless the counters add up to the requests, every future completed
+   once, each engine closed once, every partial holds 10 valid distinct
+   ids in ascending d2, every ok lane and every partial of every run is
+   bit-identical to its class engine's direct ``search`` /
+   ``partial_result`` of the same query, recall@10 of ok lanes >= 0.80 in
+   the replay and the three load runs (not the short-deadline and held
+   runs: their ok lanes are the flights that beat a deadline below the
+   median flight, the shortest walks), and ``beam_step`` pq launched in
+   the door's runs (the direct answers and the solo timings come before
+   the counts are zeroed);
 3d. [disk] the disk-resident slow tier at the same 1M index and stream:
    ``open_or_build_slow_tier`` writes the node-order block store (1 KiB
    records) to a temporary directory (removed when the phase ends) and
@@ -167,6 +206,7 @@ profiler's overhead.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import shutil
@@ -1454,6 +1494,7 @@ def calibration_path(world) -> dict:
             f"{[(lm, round(lam, 4), hf, round(r, 4), ok) for lm, lam, hf, r, ok in res.joint_history]}")
         if name == "exact" and not res.achieved:
             raise AssertionError(f"the exact fit missed its target {target}")
+        world[f"{name}_law"] = fit
         eng.search(qn[:64])                                # warm-up
         served[name] = serve_run(f"{name} adaptive, fitted law", eng,
                                  world["batches"], world["gts"], n,
@@ -1557,6 +1598,649 @@ def adc_path(world) -> dict:
         f"its first {ADC_K} to the k={ADC_K} run's; {ms:.4f} ms on the "
         f"device per call ({host:.4f} ms host)")
     del luts, vals, ids, wv, wi, want_v, want_i
+    return counts
+
+
+# --------------------------------------------------------------- phase 3g
+
+# The launcher's two QoS classes (``--serve``): lanes a dispatch (also the
+# lane quantum), batch window in s, deadline in s (--deadline-ms 100,
+# --batch-deadline-ms 2000).
+DOOR_CLASSES = {"interactive": (8, 0.002, 0.100), "batch": (32, 0.02, 2.0)}
+DOOR_REPLAY = 4000                 # requests of the virtual-clock replay
+DOOR_REPLAY_QPS = 10_000           # its arrival rate: dispatches fill up
+DOOR_SECONDS = 10.0                # arrivals of each wall-clock run
+DOOR_OVERLOAD_SECONDS = 2.0        # arrivals of the overload run
+DOOR_SHORT_SECONDS = 5.0           # length of the short-deadline run
+DOOR_HELD_GROUPS = 12              # held-continue run: dispatches of 8,
+DOOR_HELD_GAP = 0.3                # s apart, each continue held back by a
+DOOR_HOLD_CYCLES = 300_000_000     # sleep kernel (~150-170 ms of the card)
+DOOR_HELD_DEADLINE = 0.020         # past the probe, inside the hold
+DOOR_MAX_QUEUE = 256
+DOOR_WORKERS = 2
+DOOR_CLIENTS = 8                   # threads submitting the arrivals
+# The launcher's bursty arrivals: 50 ms at 8x --qps, then 200 ms at 1/8 of
+# it, so their mean rate is 1.7x --qps.
+BURSTY_MEAN = (0.05 * 8 + 0.2 / 8) / 0.25
+STATUSES = ("ok", "partial", "timeout", "shed", "error")
+
+
+class LateClock:
+    """The front door's clock seam over another clock (the wall clock) that
+    records how late each timer fires, fire time less due time: deadline
+    timers apart from batch-window timers."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.late = {"deadline": [], "window": []}
+
+    def now(self):
+        return self.inner.now()
+
+    def call_at(self, when, fn, *args):
+        kind = ("deadline" if getattr(fn, "__name__", "") == "_on_deadline"
+                else "window")
+
+        def fire(*a):
+            self.late[kind].append(self.inner.now() - when)
+            fn(*a)
+        return self.inner.call_at(when, fire, *args)
+
+    def call_later(self, delay, fn, *args):
+        return self.call_at(self.now() + delay, fn, *args)
+
+    def close(self):
+        self.inner.close()
+
+
+class FlightLog:
+    """The dispatcher seam over another dispatcher that records, for every
+    dispatch, the clock time its full result reached the door (the
+    completion callback's entry; the production dispatcher has put the
+    result on the dispatch by then) and the host seconds of its
+    ``finish_from``.  ``launch`` goes to the inner dispatcher, so ``begin``
+    runs where it would without the log.  ``hold(disp)``, if given, runs
+    right after the dispatch's ``begin``, before its ``finish_from`` is
+    handed on."""
+
+    def __init__(self, inner, clock, hold=None):
+        self.inner, self.clock, self.hold = inner, clock, hold
+        self.sent = []                      # every dispatch submitted
+        self.flights = []                   # (dispatch, t_full, seconds)
+
+    def launch(self, fly):
+        self.inner.launch(fly)
+
+    def settle(self, timeout: float) -> None:
+        """Wait until every submitted flight has reported: the door drains
+        once its lanes complete, maybe by deadline hedges, before the last
+        flights end."""
+        end = time.monotonic() + timeout
+        while len(self.flights) < len(self.sent):
+            if time.monotonic() > end:
+                raise AssertionError("[door] a flight never completed")
+            time.sleep(0.001)
+
+    def submit(self, disp, finish, on_done):
+        self.sent.append(disp)
+        if self.hold is not None:
+            self.hold(disp)
+        secs = []
+
+        def timed():
+            t0 = time.perf_counter()
+            try:
+                return finish()
+            finally:
+                secs.append(time.perf_counter() - t0)
+
+        def done(res):
+            self.flights.append((disp, self.clock.now(), secs[0]))
+            on_done(res)
+        self.inner.submit(disp, timed, done)
+
+    def close(self):
+        self.inner.close()
+
+
+def no_host_sync(fn):
+    """``fn`` under CUDA sync debug mode "error": any call in it that waits
+    for the card (a blocking copy, a stream or device synchronise, a read
+    of a device value) raises.  Single-threaded callers only: the mode is
+    the process's."""
+    import torch
+
+    def call(*args, **kw):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return fn(*args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return call
+
+
+def door_engines(tiered, laws: dict, logs: dict, check_sync: bool = False,
+                 holds: dict | None = None):
+    """One engine per class over the shared backend.  Each records the host
+    seconds of its ``begin`` and ``partial_result`` and counts its
+    ``close`` calls.  ``holds`` (flight id -> CUDA event after a sleep
+    kernel queued behind the flight's probe): for each partial of a held
+    flight, whether the hold was still pending when the partial was asked
+    and when it returned."""
+    from repro_torch import serving
+
+    engines = {}
+    for c, law in laws.items():
+        eng = serving.SearchEngine(tiered, law, k=10)
+        rec = logs[c] = {"begin": [], "partial_result": [], "close": 0,
+                         "held": []}
+        for name in ("begin", "partial_result"):
+            inner = getattr(eng, name)
+            if check_sync and name == "begin":
+                inner = no_host_sync(inner)
+
+            def timed(*a, _inner=inner, _name=name, _rec=rec[name],
+                      _held=rec["held"], **kw):
+                ev = (holds.get(id(a[0])) if holds is not None
+                      and _name == "partial_result" else None)
+                pend = ev is not None and not ev.query()
+                t0 = time.perf_counter()
+                try:
+                    return _inner(*a, **kw)
+                finally:
+                    _rec.append(time.perf_counter() - t0)
+                    if ev is not None:
+                        _held.append((pend, not ev.query()))
+            setattr(eng, name, timed)
+
+        def close(_close=eng.close, _rec=rec):
+            _rec["close"] += 1
+            _close()
+        eng.close = close
+        engines[c] = eng
+    return engines
+
+
+def door_classes(deadlines: dict | None = None) -> list:
+    from repro_torch import serving
+
+    return [serving.QoSClass(c, deadline_s=(deadlines or {}).get(c, dl),
+                             batch_window_s=w, max_lanes=lanes,
+                             lane_quantum=lanes)
+            for c, (lanes, w, dl) in DOOR_CLASSES.items()]
+
+
+def pct_ms(xs, p) -> float:
+    import numpy as np
+
+    return float(np.percentile(xs, p)) * 1e3 if len(xs) else float("nan")
+
+
+def door_report(run, door, futs, logs, flights, clock, secs: float,
+                offered: float, world, card: str, where: str) -> dict:
+    """Read every future once and check the run's bookkeeping, print its
+    lines per class, and return its metrics.  Fails unless every future
+    completed exactly once, the counters add up to the requests, the door
+    drained with each engine closed once, every partial holds k valid,
+    distinct ids with ascending d2, and every ok lane and every partial is
+    bit-identical to its class engine's direct ``search`` /
+    ``partial_result`` of the same query (``world["door_direct"]``: the LID
+    center is pinned, so a lane's result does not depend on its dispatch).
+    ``where``: the thread that ran ``begin``."""
+    import numpy as np
+
+    gt, n = world["gt"], world["n"]
+    direct = world["door_direct"]
+    st = door.stats()
+    results = [(row, c, f.result(timeout=0)) for row, c, f in futs]
+    got = {c: {s: 0 for s in STATUSES} for c in DOOR_CLASSES}
+    for _, c, r in results:
+        got[c][r.status] += 1
+    if (st["submitted"] != len(futs)
+            or sum(st[s] for s in STATUSES) != st["submitted"]
+            or got != st["per_class"]):
+        raise AssertionError(f"[door] {run}: counters {st} do not add up "
+                             f"to {len(futs)} requests {got}")
+    if not door.drained or any(lg["close"] != 1 for lg in logs.values()):
+        raise AssertionError(f"[door] {run}: drained={door.drained}, engine "
+                             f"closes {[lg['close'] for lg in logs.values()]}")
+    for row, c, r in results:
+        if r.status not in ("ok", "partial"):
+            continue
+        if r.status == "partial":
+            ok = ((r.ids >= 0) & (r.ids < n)).all() and np.isfinite(r.d2).all()
+            if not (ok and r.ids.shape == (10,)
+                    and np.unique(r.ids).size == 10
+                    and (np.diff(r.d2) >= 0).all()):
+                raise AssertionError(f"[door] {run}: a partial without 10 "
+                                     f"valid distinct ids in ascending d2: "
+                                     f"{r}")
+        ids, d2 = direct[r.status][(c, row)]
+        if not (np.array_equal(r.ids, ids) and np.array_equal(r.d2, d2)):
+            raise AssertionError(f"[door] {run}: a served {r.status} {c} "
+                                 f"lane of query {row} differs from the "
+                                 f"engine's direct "
+                                 f"{'search' if r.status == 'ok' else 'partial_result'}")
+    m = {"secs": secs, "offered": offered, "counts": got, "recall_ok": {},
+         "stats": st}
+    for c in DOOR_CLASSES:
+        rs = [(row, r) for row, cc, r in results if cc == c]
+        lat = [r.latency for _, r in rs if r.status != "shed"]
+
+        def recall(status):
+            hit = [np.isin(r.ids, gt[row]).mean() for row, r in rs
+                   if r.status == status]
+            return float(np.mean(hit)) if hit else float("nan")
+
+        ok = [r for _, r in rs if r.status == "ok"]
+        m["recall_ok"][c] = recall("ok")
+        dispatches = sum(1 for d, _, _ in flights if d.cls.name == c)
+        lg = logs[c]
+        log(f"[door] {run} {c}: "
+            f"{ {s: v for s, v in got[c].items() if v} } "
+            f"latency p50 {pct_ms(lat, 50):.2f} ms p99 {pct_ms(lat, 99):.2f} "
+            f"ms; recall@10 ok {m['recall_ok'][c]:.4f} partial "
+            f"{recall('partial'):.4f}; mean budget "
+            f"{np.mean([r.budget for r in ok]) if ok else float('nan'):.2f}"
+            f" hops {np.mean([r.hops for r in ok]) if ok else float('nan'):.2f}; "
+            f"{dispatches} dispatches; begin ({where}) p50 "
+            f"{pct_ms(lg['begin'], 50):.3f} ms p99 "
+            f"{pct_ms(lg['begin'], 99):.3f} ms; partial_result "
+            f"{len(lg['partial_result'])} calls, p50 "
+            f"{pct_ms(lg['partial_result'], 50):.3f} ms p99 "
+            f"{pct_ms(lg['partial_result'], 99):.3f} ms")
+    # Each hedged dispatch: its first partial against its full result.
+    margins = []
+    for disp, t_full, _ in flights:
+        t_part = [r.future.result(timeout=0).t_done for r in disp.requests
+                  if r.future.result(timeout=0).status == "partial"]
+        if t_part:
+            margins.append(t_full - min(t_part))
+    m["margins"] = margins
+    held = [h for c in DOOR_CLASSES for h in logs[c]["held"]]
+    m["held"] = held
+    late = clock.late if clock is not None else {"deadline": [], "window": []}
+    served = sum(v for c in got.values() for s, v in c.items()
+                 if s != "shed")
+    log(f"[door] {run}: {len(futs)} requests offered at {offered:.1f}/s, "
+        f"served {served / secs:.1f}/s over {secs:.2f} s; dispatches "
+        f"{st['dispatches']}, max open lanes {st['max_open_lanes']}/"
+        f"{door.max_queue}; timers late: deadline "
+        f"{len(late['deadline'])} fired, p50 "
+        f"{pct_ms(late['deadline'], 50):.3f} ms p99 "
+        f"{pct_ms(late['deadline'], 99):.3f} ms, window "
+        f"{len(late['window'])} fired, p50 {pct_ms(late['window'], 50):.3f} "
+        f"ms p99 {pct_ms(late['window'], 99):.3f} ms; hedged dispatches "
+        f"{len(margins)}, the full result at the door later than the first "
+        f"partial by p50 {pct_ms(margins, 50):.3f} ms, least "
+        f"{min(margins) * 1e3 if margins else float('nan'):.3f} ms; every ok "
+        f"lane and partial bit-identical to the direct search / "
+        f"partial_result ({card})")
+    if held:
+        log(f"[door] {run}: {len(held)} partials of held flights, "
+            f"{sum(a for a, _ in held)} asked while the sleep kernel ahead "
+            f"of the flight's continue was pending, "
+            f"{sum(a and b for a, b in held)} of those returned while it "
+            f"was still pending")
+    return m
+
+
+def door_run(run, world, laws, card, arrivals, rows, cls_of, offered,
+             deadlines=None, hold_cycles: int = 0,
+             clients: int = DOOR_CLIENTS) -> dict:
+    """Pace the requests in on the wall clock (``WallClock`` +
+    ``ThreadDispatcher``, each wrapped to record timers and flights) from
+    ``clients`` threads, each submitting every ``clients``-th request at
+    its arrival time; close the door, and report.
+
+    ``hold_cycles``: a sleep kernel of that many cycles is queued on the
+    engine's stream right after each dispatch's ``begin``, so the flight's
+    continue waits for it and its probe does not.  Such a run isolates the
+    streams: each class engine first serves one flight and its partial
+    outside the door (so that no first allocation on a new stream's pool
+    falls inside a hold; their launches are returned as ``warm`` and not
+    counted), and the garbage collector is off."""
+    import threading
+
+    import torch
+
+    from repro_torch import serving
+    from repro_torch.kernels import ops
+
+    qn = world["qn"]
+    logs = {}
+    holds = {} if hold_cycles else None
+    engines = door_engines(world["tiered"], laws, logs, holds=holds)
+    warm = {}
+    if hold_cycles:
+        before = ops.launch_counts()
+        for c, eng in engines.items():
+            f = serving.SearchEngine.begin(eng, qn[:DOOR_CLASSES[c][0]])
+            serving.SearchEngine.partial_result(eng, f)
+            serving.SearchEngine.finish_from(eng, f)
+        warm = {k: v - before[k] for k, v in ops.launch_counts().items()}
+        gc.collect()
+        gc.disable()
+
+    def hold(disp):
+        stream = engines[disp.cls.name]._stream
+        with torch.cuda.stream(stream):
+            torch.cuda._sleep(hold_cycles)
+        ev = torch.cuda.Event()
+        ev.record(stream)
+        holds[id(disp.flight)] = ev
+
+    clock = LateClock(serving.WallClock())
+    flights = FlightLog(serving.ThreadDispatcher(workers=DOOR_WORKERS), clock,
+                        hold=hold if hold_cycles else None)
+    door = serving.FrontDoor(engines, door_classes(deadlines),
+                             max_queue=DOOR_MAX_QUEUE, clock=clock,
+                             dispatcher=flights)
+    futs = [None] * len(arrivals)
+    waits = [[] for _ in range(clients)]
+    gc_pauses, gc_start = [], []
+
+    def gc_clock(phase, info):
+        # Full collections stop every thread: the door's longest stalls.
+        if info["generation"] == 2:
+            if phase == "start":
+                gc_start.append(time.perf_counter())
+            elif gc_start:
+                gc_pauses.append(time.perf_counter() - gc_start.pop())
+
+    gc.callbacks.append(gc_clock)
+    t0 = time.perf_counter()
+
+    def client(k: int) -> None:
+        for i in range(k, len(arrivals), clients):
+            lag = arrivals[i] - (time.perf_counter() - t0)
+            if lag > 0:
+                time.sleep(lag)
+            c = str(cls_of[i])
+            t = time.perf_counter()
+            futs[i] = (int(rows[i]), c, door.submit(qn[rows[i]], cls=c))
+            waits[k].append(time.perf_counter() - t)
+
+    try:
+        threads = [threading.Thread(target=client, args=(k,))
+                   for k in range(clients)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        if any(t.is_alive() for t in threads):
+            raise AssertionError(f"[door] {run}: a client thread hung")
+        door.close(wait=True, timeout=120)
+        secs = time.perf_counter() - t0
+        flights.settle(120)
+    finally:
+        if hold_cycles:
+            gc.enable()
+        gc.callbacks.remove(gc_clock)
+        flights.close()
+        clock.close()
+    m = door_report(run, door, futs, logs, flights.flights, clock, secs,
+                    offered, world, card, "the begin thread")
+    m["warm"] = warm
+    w = [x for ws in waits for x in ws]
+    log(f"[door] {run}: a submit held its client p50 {pct_ms(w, 50):.3f} "
+        f"ms p99 {pct_ms(w, 99):.3f} ms ({clients} client threads; the "
+        f"last arrival {arrivals[-1] if len(arrivals) else 0.0:.2f} s, the "
+        f"door closed at {secs:.2f} s); full garbage collections stopped "
+        f"the process {len(gc_pauses)} times, for "
+        f"{[round(x * 1e3, 1) for x in gc_pauses]} ms")
+    return m
+
+
+def door_laws(world) -> dict:
+    """The two classes' budget laws: phase 3b's tiered fit for
+    "interactive", the same at ``l_min = l_max`` for "batch", both with the
+    LID center pinned to the stream's mean."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import serving
+
+    fitted = world["tiered_law"]
+    probe = serving.SearchEngine(world["tiered"], fitted, k=10)
+    center = float(np.mean(np.concatenate(
+        [r.astats.q_lid for r in probe.search_batches(world["batches"])])))
+    log(f"[door] laws: interactive lam={fitted.lam:.4f} "
+        f"l_min={fitted.l_min} (phase 3b's tiered fit), batch l_min = "
+        f"l_max = {fitted.l_max}; LID center pinned to the stream's mean "
+        f"{center:.4f}")
+    return {"interactive": dataclasses.replace(fitted, center=center),
+            "batch": dataclasses.replace(fitted, l_min=fitted.l_max,
+                                         center=center)}
+
+
+def door_direct(world, laws) -> dict:
+    """Each class engine's direct answers to every query of the stream, in
+    batches of the stream's size: {"ok": search, "partial": partial_result
+    of a begin}, each (class, query row) -> (ids, d2)."""
+    from repro_torch import serving
+
+    qn = world["qn"]
+    direct = {"ok": {}, "partial": {}}
+    for c, law in laws.items():
+        eng = serving.SearchEngine(world["tiered"], law, k=10)
+        eng.search(qn[:DOOR_CLASSES[c][0]])    # warm-up
+        for s in range(0, qn.shape[0], SERVE_BATCH):
+            b = qn[s:s + SERVE_BATCH]
+            for kind, res in (("ok", eng.search(b)),
+                              ("partial", eng.partial_result(eng.begin(b)))):
+                for i in range(b.shape[0]):
+                    direct[kind][(c, s + i)] = (res.ids[i], res.d2[i])
+    return direct
+
+
+def door_replay(world, laws, card, arrivals, rows, cls_of):
+    """The virtual-clock replay (``VirtualDispatcher(service_time=
+    "measured")``, ``begin`` under sync debug mode "error").  Returns its
+    metrics and each class's capacity in lanes/s (real lanes over the host
+    seconds of its dispatches' ``begin`` and ``finish_from``)."""
+    from repro_torch import serving
+
+    qn = world["qn"]
+    logs = {}
+    engines = door_engines(world["tiered"], laws, logs, check_sync=True)
+    vclock = serving.VirtualClock()
+    flights = FlightLog(serving.VirtualDispatcher(vclock,
+                                                  service_time="measured"),
+                        vclock)
+    door = serving.FrontDoor(engines, door_classes(),
+                             max_queue=DOOR_MAX_QUEUE, clock=vclock,
+                             dispatcher=flights)
+    futs = []
+    t0 = time.perf_counter()
+    for t_arr, row, c in zip(arrivals, rows, cls_of):
+        vclock.run_until(float(t_arr))
+        futs.append((int(row), str(c), door.submit(qn[row], cls=str(c))))
+    serving.drain_virtual(door, vclock)
+    m = door_report("replay", door, futs, logs, flights.flights, None,
+                    time.perf_counter() - t0, DOOR_REPLAY_QPS, world, card,
+                    "the flushing thread")
+    if any(m["counts"][c]["ok"] == 0 for c in DOOR_CLASSES):
+        raise AssertionError(f"[door] replay served no ok lane of a class: "
+                             f"{m['counts']}")
+    cap = {}
+    for c in DOOR_CLASSES:
+        fl = [(d.n_real, s) for d, _, s in flights.flights
+              if d.cls.name == c]
+        host = sum(s for _, s in fl) + sum(logs[c]["begin"])
+        cap[c] = sum(k for k, _ in fl) / host
+        log(f"[door] replay capacity {c}: {cap[c]:.1f} lanes/s ({len(fl)} "
+            f"dispatches, {sum(k for k, _ in fl)} lanes, {host:.3f} host s "
+            f"of begin + finish_from; p50 a dispatch: begin "
+            f"{pct_ms(logs[c]['begin'], 50):.3f} ms, finish_from "
+            f"{pct_ms([s for _, s in fl], 50):.3f} ms); every ok lane "
+            f"bit-identical to the direct search; "
+            f"{len(logs[c]['begin'])} begins without a host sync (sync "
+            f"debug mode \"error\")")
+    return m, cap
+
+
+def door_solo(world, laws, rng) -> float:
+    """The short deadline: interactive dispatches timed alone (probe
+    ready, full result), the deadline between the two medians."""
+    import statistics
+
+    from repro_torch import serving
+
+    qn = world["qn"]
+    eng = serving.SearchEngine(world["tiered"], laws["interactive"], k=10)
+    lanes = DOOR_CLASSES["interactive"][0]
+    t_probe, t_full = [], []
+    for i in range(20):
+        b = qn[rng.integers(0, qn.shape[0], size=lanes)]
+        t0 = time.perf_counter()
+        f = eng.begin(b)
+        if f.probe_event is not None:
+            f.probe_event.synchronize()
+        t_probe.append(time.perf_counter() - t0)
+        eng.finish_from(f)
+        t_full.append(time.perf_counter() - t0)
+    p, full = statistics.median(t_probe), statistics.median(t_full)
+    deadline = p + 0.5 * (full - p)
+    log(f"[door] an interactive dispatch alone: probe ready after "
+        f"{p * 1e3:.3f} ms, full result after {full * 1e3:.3f} ms (medians "
+        f"of 20, not counted on the path); short deadline "
+        f"{deadline * 1e3:.3f} ms")
+    return deadline
+
+
+def door_groups(run, world, laws, card, rng, rate: float, seconds: float,
+                arrival: str, deadline: float, hold_cycles: int = 0) -> dict:
+    """Interactive requests in groups of 8 (one full dispatch each, no
+    window wait), ``rate`` requests/s, the interactive deadline
+    ``deadline``."""
+    import numpy as np
+
+    from repro_torch.launch.serve import arrival_times
+
+    lanes = DOOR_CLASSES["interactive"][0]
+    groups = int(rate / lanes * seconds)
+    return door_run(run, world, laws, card,
+                    np.repeat(arrival_times(rng, groups, rate / lanes,
+                                            arrival), lanes),
+                    rng.integers(0, world["qn"].shape[0], size=groups * lanes),
+                    ["interactive"] * (groups * lanes), rate,
+                    deadlines={"interactive": deadline},
+                    hold_cycles=hold_cycles)
+
+
+def door_poisson(run, world, laws, card, rng, rate: float,
+                 arrival: str = "poisson",
+                 seconds: float = DOOR_SECONDS) -> dict:
+    """``seconds`` of arrivals at a mean of ``rate`` requests/s, half in
+    each class (bursty: the launcher's generator, its --qps scaled so that
+    the mean is ``rate``)."""
+    import numpy as np
+
+    from repro_torch.launch.serve import arrival_times
+
+    n = int(rate * seconds)
+    qps = rate / BURSTY_MEAN if arrival == "bursty" else rate
+    return door_run(run, world, laws, card, arrival_times(rng, n, qps,
+                                                          arrival),
+                    rng.integers(0, world["qn"].shape[0], size=n),
+                    np.where(rng.random(n) < 0.5, "interactive", "batch"),
+                    rate)
+
+
+def door_path(world, card: str, seed: int) -> dict:
+    """[door]: the front door over phase 3's in-memory tiered index, two
+    QoS classes (the launcher's) each with its own engine over the shared
+    backend (:func:`door_laws`).  The virtual-clock replay gives each
+    class's capacity from its flights' host seconds.  Then the wall clock:
+    Poisson at 150% of the replay's capacity (overload: the door must
+    shed; ``DOOR_OVERLOAD_SECONDS`` of arrivals, which the door takes
+    several times as long to absorb), whose served lanes a second measure
+    the wall-clock door's capacity; Poisson and bursty at 50% of that (no
+    shed at Poisson); a short-deadline run whose hedges fire; and held
+    flights, whose continue a sleep kernel holds back past their
+    deadline, so that each partial must return before the continue can.
+    Returns the launch counts of the door's runs alone."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import arrival_times
+
+    t_phase = time.perf_counter()
+    laws = door_laws(world)
+    rng = np.random.default_rng(seed + 20)
+    rows = rng.integers(0, world["qn"].shape[0], size=DOOR_REPLAY)
+    cls_of = rng.permutation(np.repeat(list(DOOR_CLASSES), DOOR_REPLAY // 2))
+    arrivals = arrival_times(rng, DOOR_REPLAY, DOOR_REPLAY_QPS, "poisson")
+    world["door_direct"] = door_direct(world, laws)
+    short_deadline = door_solo(world, laws, rng)
+
+    ops.reset_launch_counts()
+    replay, cap = door_replay(world, laws, card, arrivals, rows, cls_of)
+    cap_mix = 1.0 / sum(0.5 / v for v in cap.values())
+    runs = {"replay": replay}
+    over = runs["poisson 150%"] = door_poisson(
+        "poisson 150%", world, laws, card, rng, 1.5 * cap_mix,
+        seconds=DOOR_OVERLOAD_SECONDS)
+    served = sum(v for c in over["counts"].values()
+                 for s, v in c.items() if s in ("ok", "partial"))
+    wall = served / over["secs"]
+    log(f"[door] capacity: the replay's {cap_mix:.1f} requests/s (half and "
+        f"half, full dispatches, one thread); the wall-clock door served "
+        f"{wall:.1f} ok + partial lanes/s under overload "
+        f"({wall / cap_mix:.3f} of the replay's): the 50% runs take half of "
+        f"that")
+    runs["poisson 50%"] = door_poisson("poisson 50%", world, laws, card, rng,
+                                       0.5 * wall)
+    runs["bursty 50%"] = door_poisson("bursty 50%", world, laws, card, rng,
+                                      0.5 * wall, "bursty")
+    runs["short deadline"] = short = door_groups(
+        "short deadline", world, laws, card, rng, 0.25 * wall,
+        DOOR_SHORT_SECONDS, "poisson", short_deadline)
+    lanes = DOOR_CLASSES["interactive"][0]
+    runs["held"] = held = door_run(
+        "held continue", world, laws, card,
+        np.repeat(np.arange(DOOR_HELD_GROUPS) * DOOR_HELD_GAP, lanes),
+        rng.integers(0, world["qn"].shape[0],
+                     size=DOOR_HELD_GROUPS * lanes),
+        ["interactive"] * (DOOR_HELD_GROUPS * lanes),
+        lanes / DOOR_HELD_GAP, deadlines={"interactive": DOOR_HELD_DEADLINE},
+        hold_cycles=DOOR_HOLD_CYCLES, clients=1)
+    counts = {k: v - held["warm"].get(k, 0)
+              for k, v in ops.launch_counts().items()}
+    log(f"[door] kernel launches on the path (the door's runs): "
+        f"{ {k: v for k, v in counts.items() if v} }; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    del world["door_direct"]
+    if counts["beam_step.pq"] == 0:
+        raise AssertionError("[door] beam_step.pq was never launched")
+    if runs["poisson 50%"]["stats"]["shed"] != 0:
+        raise AssertionError("[door] the door shed requests at 50% load")
+    if over["stats"]["shed"] == 0:
+        raise AssertionError("[door] nothing was shed at 150% load")
+    # Phase 3's gate over each run's ok lanes, both classes.  Not the
+    # short-deadline or held runs': their ok lanes are the flights that
+    # beat a deadline set below the median flight, the shortest walks.
+    for run, r in runs.items():
+        if run in ("short deadline", "held"):
+            continue
+        oks = [(r["recall_ok"][c], r["counts"][c]["ok"])
+               for c in DOOR_CLASSES if r["counts"][c]["ok"]]
+        if oks and np.average([a for a, _ in oks],
+                              weights=[w for _, w in oks]) < RECALL_FLOOR:
+            raise AssertionError(f"[door] {run}: recall@10 of ok lanes "
+                                 f"below {RECALL_FLOOR}")
+    if short["stats"]["partial"] == 0:
+        raise AssertionError("[door] no hedge fired in the short-deadline "
+                             "run")
+    asked = [b for a, b in held["held"] if a]
+    if not asked or not all(asked):
+        raise AssertionError(f"[door] held continue: of {len(asked)} "
+                             f"partials asked while their flight's continue "
+                             f"was held back, {len(asked) - sum(asked)} "
+                             f"returned only after the hold: a partial "
+                             f"queued behind the engine's stream")
     return counts
 
 
@@ -2612,6 +3296,7 @@ def main(argv=None) -> int:
                                      trace=args.trace_first_batch)
     paths["calibration"] = calibration_path(world)
     paths["adc"] = adc_path(world)
+    paths["door"] = door_path(world, card, args.seed)
     tmp = tempfile.mkdtemp(prefix="mcgi-disk-")
     try:
         paths["disk"], stores = disk_path(world, tmp)

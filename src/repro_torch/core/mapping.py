@@ -8,6 +8,7 @@ and the routing-side budget law of Prop. 4.2 (port of
 from __future__ import annotations
 
 import dataclasses
+import numbers
 
 import torch
 
@@ -45,14 +46,20 @@ def constant_alpha(n: int, alpha: float, device="cuda") -> torch.Tensor:
                       device=resolve_device(device))
 
 
+def _f32(v, device) -> torch.Tensor:
+    """A float32 tensor on ``device``; a number is filled there (no
+    host-to-device copy, which would wait for the stream)."""
+    if isinstance(v, numbers.Real):
+        return torch.full((), v, dtype=torch.float32, device=device)
+    return torch.as_tensor(v, dtype=torch.float32, device=device)
+
+
 def adaptive_beam_budget(lid: torch.Tensor, lam, l_min, l_max: int,
                          mu=None) -> torch.Tensor:
     """Prop. 4.2's budget L(q) = C * exp(lam * (LID(q) - center)), normalised
     so an average query gets sqrt(l_min * l_max), rounded half to even,
     clipped to [l_min, l_max].  (Q,) int32."""
     center = lid.mean() if mu is None else mu
-    f32 = dict(dtype=torch.float32, device=lid.device)
-    l_mid = torch.sqrt(torch.as_tensor(l_min, **f32)
-                       * torch.as_tensor(l_max, **f32))
+    l_mid = torch.sqrt(_f32(l_min, lid.device) * _f32(l_max, lid.device))
     budget = l_mid * torch.exp(lam * (lid - center))
     return torch.clamp(torch.round(budget), l_min, l_max).to(torch.int32)

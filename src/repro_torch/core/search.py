@@ -136,14 +136,15 @@ def _init_state(ctxs: torch.Tensor, entry, eval_dists: DistEval, n: int,
     e = entry.expand(q)[:, None]
     entry_d = eval_dists(ctxs, e, torch.ones((q, 1), dtype=torch.bool,
                                              device=dev))[:, 0]
-    word = (entry >> 5).long()
+    # A one-element index: a 0-dim one would be read on the host.
+    word = (entry >> 5).long().reshape(1)
     bit = _bits(entry)
     if excl_words is None:
         visited = torch.zeros((q, nw), dtype=torch.int32, device=dev)
         visited[:, word] = bit
     else:
-        entry_d = torch.where((excl_words[:, word] & bit) != 0, torch.inf,
-                              entry_d)
+        entry_d = torch.where((excl_words[:, word][:, 0] & bit) != 0,
+                              torch.inf, entry_d)
         visited = excl_words.clone()
         visited[:, word] |= bit
     beam_ids = torch.full((q, beam_width), INVALID, dtype=torch.int32,
@@ -188,17 +189,33 @@ def _scrub_state(state, excl_words):
     return (ids, d) + tuple(state[2:])
 
 
+def _lane_vector(v, q: int, device) -> torch.Tensor:
+    """(Q,) int32 on ``device`` from a per-lane array or one number; a
+    number is filled on the device (no host-to-device copy, so no wait for
+    the stream)."""
+    if isinstance(v, (int, np.integer)):
+        return torch.full((q,), int(v), dtype=torch.int32, device=device)
+    return torch.as_tensor(v, dtype=torch.int32,
+                           device=device).expand(q).contiguous()
+
+
 def _lane_vectors(q: int, beam_width: int, hop_limits, budgets, device):
-    b = (torch.full((q,), beam_width, dtype=torch.int32, device=device)
-         if budgets is None else
-         torch.as_tensor(budgets, dtype=torch.int32, device=device).expand(q))
-    hl = torch.as_tensor(hop_limits, dtype=torch.int32,
-                         device=device).expand(q)
-    return b.contiguous(), hl.contiguous()
+    return (_lane_vector(beam_width if budgets is None else budgets, q,
+                         device),
+            _lane_vector(hop_limits, q, device))
+
+
+def check_converged(active_count: torch.Tensor) -> None:
+    """Read a walk's movable-lane counter (:func:`run_batch`'s
+    ``active_count``): a walk to convergence must leave 0."""
+    left = int(active_count)
+    if left != 0:
+        raise RuntimeError(f"{left} lanes could still move after a walk "
+                           f"to convergence")
 
 
 def run_batch(states, ctxs, adj, eval_dists: DistEval, beam_width: int,
-              hop_limits, budgets=None):
+              hop_limits, budgets=None, active_count=None):
     """Run a batch of lanes to convergence, freezing each lane whose loop
     condition is False (hop limit reached or frontier closed) exactly as the
     reference's vmapped ``while_loop``; leaves of ``states`` are (Q, ...),
@@ -208,8 +225,11 @@ def run_batch(states, ctxs, adj, eval_dists: DistEval, beam_width: int,
     callers such as the engine's partial results keep the input state), then
     walked by one :func:`ops.beam_walk` with no hop cap.  The walk counts
     the lanes that could still move at its end; the one read of that
-    counter must give 0.  ``eval_dists`` must be one of
-    :func:`_exact_eval` / :func:`_pq_eval`, whose table the walk reads.
+    counter must give 0 (:func:`check_converged`).  ``active_count`` (one
+    int32 on the states' device) takes that count instead and leaves the
+    read to the caller, so the call returns without waiting for the walk.
+    ``eval_dists`` must be one of :func:`_exact_eval` / :func:`_pq_eval`,
+    whose table the walk reads.
     """
     kind = getattr(eval_dists, "kind", None)
     table = getattr(eval_dists, "table", None)
@@ -222,12 +242,12 @@ def run_batch(states, ctxs, adj, eval_dists: DistEval, beam_width: int,
     st = tuple(t.clone() for t in states)
     if q == 0:
         return st
-    left = torch.zeros((1,), dtype=torch.int32, device=dev)
+    left = (torch.zeros((1,), dtype=torch.int32, device=dev)
+            if active_count is None else active_count)
     st = ops.beam_walk(st, ctxs.contiguous(), adj, table, b, hl, kind=kind,
                        max_hops=ops.MAX_HOPS, active_count=left)
-    if int(left) != 0:
-        raise RuntimeError(f"{int(left)} lanes could still move after a walk "
-                           f"to convergence")
+    if active_count is None:
+        check_converged(left)
     return st
 
 
@@ -330,8 +350,8 @@ def grant_budgets(probe_state, budget_cfg: AdaptiveBeamBudget,
     d_pool = torch.where(p_ids == INVALID, torch.inf, p_d)
     q_lid = lid_mod.online_lid(d_pool, k=min(budget_cfg.lid_k,
                                              budget_cfg.l_max))
-    center = (torch.tensor(budget_cfg.center, dtype=torch.float32,
-                           device=q_lid.device)
+    center = (torch.full((), budget_cfg.center, dtype=torch.float32,
+                         device=q_lid.device)
               if budget_cfg.center is not None else q_lid.mean())
     budgets = mapping_mod.adaptive_beam_budget(
         q_lid, lam_, l_min_, budget_cfg.l_max, mu=center)
@@ -341,16 +361,18 @@ def grant_budgets(probe_state, budget_cfg: AdaptiveBeamBudget,
 def adaptive_probe_batch(ctxs, adj, entry, eval_dists: DistEval, n: int,
                          budget_cfg: AdaptiveBeamBudget,
                          max_hops: int | None = None, *, lam=None, l_min=None,
-                         excl=None):
+                         excl=None, active_count=None):
     """Phases 1-2 of the adaptive engine: ``probe_hops`` hops at ``l_min``
     frontier budget into an ``l_max``-wide beam, then the budget grant.
     Returns (probe_state, budgets, hop_limits, q_lid); a filtered probe state
-    is already scrubbed of the forced entry seed."""
+    is already scrubbed of the forced entry seed.  ``active_count``: see
+    :func:`run_batch` (given, nothing here waits for the device)."""
     l_max = budget_cfg.l_max
     l_min_ = budget_cfg.l_min if l_min is None else l_min
     states = _init_state(ctxs, entry, eval_dists, n, l_max, excl)
     probe_state = run_batch(states, ctxs, adj, eval_dists, l_max,
-                            hop_limits=budget_cfg.probe_hops, budgets=l_min_)
+                            hop_limits=budget_cfg.probe_hops, budgets=l_min_,
+                            active_count=active_count)
     if excl is not None:
         probe_state = _scrub_state(probe_state, excl)
     budgets, hop_limits, q_lid = grant_budgets(
@@ -430,9 +452,11 @@ def _rerank_from_vecs(beam_ids, vecs, queries, k: int):
     return torch.gather(beam_ids, 1, order), torch.gather(d2, 1, order)
 
 
-def _probe_exact(x, adj, queries, entry, budget_cfg, excl=None):
+def _probe_exact(x, adj, queries, entry, budget_cfg, excl=None,
+                 active_count=None):
     return adaptive_probe_batch(queries, adj, entry, _exact_eval(x),
-                                x.shape[0], budget_cfg, excl=excl)
+                                x.shape[0], budget_cfg, excl=excl,
+                                active_count=active_count)
 
 
 def _continue_exact(x, adj, probe_state, ctxs, budgets, hop_limits,
@@ -441,9 +465,11 @@ def _continue_exact(x, adj, probe_state, ctxs, budgets, hop_limits,
                                    budget_cfg, budgets, hop_limits)
 
 
-def _probe_pq(codes, adj, luts, entry, budget_cfg, excl=None):
+def _probe_pq(codes, adj, luts, entry, budget_cfg, excl=None,
+              active_count=None):
     return adaptive_probe_batch(luts, adj, entry, _pq_eval(codes),
-                                codes.shape[0], budget_cfg, excl=excl)
+                                codes.shape[0], budget_cfg, excl=excl,
+                                active_count=active_count)
 
 
 def _continue_pq(codes, adj, probe_state, luts, budgets, hop_limits,

@@ -139,3 +139,14 @@ def need(t: torch.Tensor, name: str, dtype, shape, dev) -> None:
 
 def stream(dev: torch.device) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
+
+
+_COUNT_LOCK = threading.Lock()
+
+
+def count(launches: dict, key: str) -> None:
+    """Count one launch of ``key``: serving threads launch kernels at once,
+    and ``+=`` on a dict entry is a read and a write the interpreter may
+    switch threads between."""
+    with _COUNT_LOCK:
+        launches[key] += 1

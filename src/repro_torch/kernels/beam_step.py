@@ -118,7 +118,7 @@ def beam_walk_cuda(state, ctxs, adj, table, budgets, hop_limits, *, kind,
                          f"memory")
     if rc != 0:
         raise RuntimeError(f"beam_step kernel launch failed: CUDA error {rc}")
-    launches[kind] += 1
+    _build.count(launches, kind)
     return state
 
 
@@ -180,5 +180,5 @@ def beam_hop_rows_cuda(state, u, active, rows, ctxs, table, budgets,
     if rc != 0:
         raise RuntimeError(f"beam_step row-fed hop launch failed: CUDA error "
                            f"{rc}")
-    launches["pq_rows"] += 1
+    _build.count(launches, "pq_rows")
     return state, u_next, active_next

@@ -97,5 +97,5 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA "
                            f"error {rc}")
-    launches["decode_attention"] += 1
+    _build.count(launches, "decode_attention")
     return out

@@ -50,5 +50,5 @@ def l2_distance_cuda(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
                   norms.data_ptr(), out.data_ptr(), _build.stream(dev))
     if rc != 0:
         raise RuntimeError(f"l2_distance kernel launch failed: CUDA error {rc}")
-    launches["l2_distance"] += 1
+    _build.count(launches, "l2_distance")
     return out

@@ -40,5 +40,5 @@ def lid_estimate_cuda(knn_d2: torch.Tensor) -> torch.Tensor:
     if rc != 0:
         raise RuntimeError(f"lid_estimate kernel launch failed: CUDA error "
                            f"{rc}")
-    launches["lid_estimate"] += 1
+    _build.count(launches, "lid_estimate")
     return out

@@ -52,5 +52,5 @@ def pq_scan_cuda(luts: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
                   out.data_ptr(), _build.stream(dev))
     if rc != 0:
         raise RuntimeError(f"pq_scan kernel launch failed: CUDA error {rc}")
-    launches["pq_scan"] += 1
+    _build.count(launches, "pq_scan")
     return out

@@ -85,7 +85,7 @@ def topk_cuda(d: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
                       out_i.data_ptr(), None, None, _build.stream(dev))
         if rc != 0:
             raise RuntimeError(f"topk kernel launch failed: CUDA error {rc}")
-        launches["topk"] += 1
+        _build.count(launches, "topk")
         order = torch.argsort(out_v, dim=1, stable=True)
         return torch.gather(out_v, 1, order), torch.gather(out_i, 1, order)
     seg = segment_length(q, n, slots)
@@ -101,5 +101,5 @@ def topk_cuda(d: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
                   _build.stream(dev))
     if rc != 0:
         raise RuntimeError(f"topk kernel launch failed: CUDA error {rc}")
-    launches["topk"] += 1
+    _build.count(launches, "topk")
     return out_v, out_i

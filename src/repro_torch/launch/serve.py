@@ -9,7 +9,10 @@ recall@k, QPS, batch latency, mean budget and walk hops.
          [--calibrate [--joint] [--recall-target 0.95] [--calib-sample 256]]] \\
         [--filter-frac F] [--index I] [--disk D [--cache-nodes 4096] \\
          [--pin-nodes 256] [--hot-nodes 0 [--hot-chunk 256] \\
-         [--freq-decay 0.5]] [--io-workers W]] [--online]
+         [--freq-decay 0.5]] [--io-workers W]] [--online | --vamana] \\
+        [--serve [--qps 200] [--requests 256] [--interactive-frac 0.5] \\
+         [--deadline-ms 100] [--batch-deadline-ms 2000] \\
+         [--arrival poisson|bursty] [--interactive-recall-target 0.85]]
 
 Modes: fixed beam, ``--adaptive`` (probe -> budget ->
 bucketed continue -> rerank), ``--buckets``, ``--pipeline`` (the
@@ -23,9 +26,20 @@ same results, real block reads, a prefetch stage in the adaptive
 pipeline) and ends with a ``[serve] disk tier:`` line of measured cache and
 read figures.  ``--online`` builds with Online-MCGI (Algorithm 2,
 :func:`repro_torch.core.online.build_online_mcgi`) in place of the offline
-build.  ``--device cuda`` (default) runs the walk's hops
-through the hand-written CUDA kernel; ``--device cpu`` runs the plain
-PyTorch hop.
+build, ``--vamana`` the static-alpha baseline (alpha = 1.2).  ``--device
+cuda`` (default) runs the walk's hops through the hand-written CUDA kernel;
+``--device cpu`` runs the plain PyTorch hop.
+
+``--serve`` (with ``--adaptive``) runs the front door
+(:mod:`repro_torch.serving.server`) in place of the batch benchmark: live
+requests paced at ``--qps`` (Poisson or bursty ``--arrival``), admitted
+into two QoS classes (``--interactive-frac`` splits the mix) with their own
+deadlines (``--deadline-ms`` / ``--batch-deadline-ms``) and their own
+budget-law engines over the shared backend; with ``--calibrate`` one
+(lam, l_min) law per class is fitted to ``--interactive-recall-target`` /
+``--recall-target``.  The report is per class: outcome counts, latency
+p50 / p99 against the deadline, recall, mean granted budget and walk hops.
+Timing runs on the wall-clock seam (``WallClock`` + ``ThreadDispatcher``).
 """
 from __future__ import annotations
 
@@ -69,6 +83,113 @@ def _report_disk_tier(backend, model) -> None:
               f"promotion_io_blocks={st['promotion_io_blocks']}")
 
 
+def arrival_times(rng, n: int, qps: float, arrival: str) -> np.ndarray:
+    """``n`` arrival times in seconds: Poisson at ``qps``, or bursty
+    (on/off-modulated Poisson: 50 ms at 8x ``qps``, then 200 ms at 1/8)."""
+    if arrival == "poisson":
+        return np.cumsum(rng.exponential(1.0 / qps, size=n))
+    out, t, on, phase_end = [], 0.0, True, 0.05
+    while len(out) < n:
+        t += float(rng.exponential(1.0 / (qps * 8.0 if on else qps / 8.0)))
+        if t >= phase_end:
+            t, on = phase_end, not on
+            phase_end += 0.05 if on else 0.2
+        else:
+            out.append(t)
+    return np.asarray(out)
+
+
+def _serve_front_door(args, backend, qn, gt, budget_cfg) -> None:
+    """Closed-loop front-door serving on the wall clock: one budget-law
+    engine per QoS class over the shared backend, arrival pacing at --qps,
+    per-class SLO report."""
+    import dataclasses
+
+    from repro_torch import serving
+    from repro_torch.core import calibrate
+
+    laws = {"interactive": budget_cfg,
+            "batch": dataclasses.replace(budget_cfg,
+                                         l_min=budget_cfg.l_max)}
+    if args.calibrate:
+        def make_eval(cfg):
+            return backend.recall_eval(qn, gt, k=args.k,
+                                       sample=args.calib_sample, seed=0,
+                                       base_cfg=cfg)
+
+        fits = calibrate.calibrate_budget_law_per_class(
+            make_eval, budget_cfg,
+            {"interactive": args.interactive_recall_target,
+             "batch": args.recall_target},
+            joint=args.joint)
+        laws = calibrate.class_budget_cfgs(fits, budget_cfg)
+        for name, r in fits.items():
+            print(f"[serve] class {name}: lam={r.lam:.4f} "
+                  f"l_min={laws[name].l_min} recall={r.recall:.4f} "
+                  f"({'hit' if r.achieved else 'MISSED'} {r.target:.2f})")
+    lanes = {"interactive": 8, "batch": 32}
+    engines = {name: serving.SearchEngine(backend, law, k=args.k,
+                                          num_buckets=args.buckets)
+               for name, law in laws.items()}
+    classes = [
+        serving.QoSClass("interactive", deadline_s=args.deadline_ms / 1e3,
+                         batch_window_s=0.002,
+                         max_lanes=lanes["interactive"],
+                         lane_quantum=lanes["interactive"]),
+        serving.QoSClass("batch", deadline_s=args.batch_deadline_ms / 1e3,
+                         batch_window_s=0.02, max_lanes=lanes["batch"],
+                         lane_quantum=lanes["batch"]),
+    ]
+    for name, eng in engines.items():      # warm the padded dispatch shape
+        eng.search(qn[:lanes[name]])
+    rng = np.random.default_rng(0)
+    n = args.requests
+    arr = arrival_times(rng, n, args.qps, args.arrival)
+    rows = rng.integers(0, qn.shape[0], size=n)
+    cls_of = ["interactive" if rng.random() < args.interactive_frac
+              else "batch" for _ in range(n)]
+    door = serving.FrontDoor(engines, classes)
+    t0 = time.perf_counter()
+    futs = []
+    for t_arr, row, cls in zip(arr, rows, cls_of):
+        lag = t_arr - (time.perf_counter() - t0)
+        if lag > 0:
+            time.sleep(lag)
+        futs.append((int(row), cls, door.submit(qn[row], cls=cls)))
+    door.close(wait=True, timeout=600)
+    wall = time.perf_counter() - t0
+    print(f"[serve] front door: {n} requests in {wall:.2f}s "
+          f"({n / wall:.1f} qps, offered {args.qps:.0f}, "
+          f"arrival={args.arrival})")
+    for c in classes:
+        rs = [(row, f.result(timeout=0)) for row, cls, f in futs
+              if cls == c.name]
+        lat = [r.latency * 1e3 for _, r in rs if r.status != "shed"]
+        ok = [(row, r) for row, r in rs if r.status == "ok"]
+        counts: dict[str, int] = {}
+        for _, r in rs:
+            counts[r.status] = counts.get(r.status, 0) + 1
+        rec = (float(np.mean([np.isin(r.ids, gt[row][:args.k]).mean()
+                              for row, r in ok])) if ok else float("nan"))
+        bud = (float(np.mean([r.budget for _, r in ok
+                              if r.budget is not None]))
+               if ok else float("nan"))
+        hops = (float(np.mean([r.hops for _, r in ok
+                               if r.hops is not None]))
+                if ok else float("nan"))
+        p50 = float(np.percentile(lat, 50)) if lat else float("nan")
+        p99 = float(np.percentile(lat, 99)) if lat else float("nan")
+        print(f"[serve] class {c.name}: {counts} "
+              f"lat p50={p50:.1f}ms p99={p99:.1f}ms "
+              f"(deadline {c.deadline_s * 1e3:.0f}ms) "
+              f"recall@{args.k}={rec:.4f} meanL={bud:.1f} hops={hops:.1f}")
+    st = door.stats()
+    print(f"[serve] admission: submitted={st['submitted']} "
+          f"admitted={st['admitted']} shed={st['shed']} "
+          f"dispatches={st['dispatches']} "
+          f"max_open={st['max_open_lanes']}/{door.max_queue}")
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
@@ -87,6 +208,8 @@ def main(argv=None) -> None:
     ap.add_argument("--build-batch", type=int, default=256)
     ap.add_argument("--online", action="store_true",
                     help="build with Online-MCGI (Algorithm 2)")
+    ap.add_argument("--vamana", action="store_true",
+                    help="baseline build (static alpha=1.2)")
     ap.add_argument("--adaptive", action="store_true",
                     help="per-query adaptive beam budgets (Prop. 4.2)")
     ap.add_argument("--l-min", type=int, default=16)
@@ -125,6 +248,29 @@ def main(argv=None) -> None:
                          "frequencies")
     ap.add_argument("--io-workers", type=int, default=None,
                     help="with --disk: prefetch worker threads (default 1)")
+    ap.add_argument("--serve", action="store_true",
+                    help="closed-loop front-door serving (QoS classes, "
+                         "deadlines, load shedding) instead of the batch "
+                         "benchmark; requires --adaptive")
+    ap.add_argument("--qps", type=float, default=200.0,
+                    help="with --serve: offered arrival rate")
+    ap.add_argument("--requests", type=int, default=256,
+                    help="with --serve: total requests to pace in")
+    ap.add_argument("--interactive-frac", type=float, default=0.5,
+                    help="with --serve: fraction of requests in the "
+                         "interactive class (rest are batch)")
+    ap.add_argument("--deadline-ms", type=float, default=100.0,
+                    help="with --serve: interactive-class deadline")
+    ap.add_argument("--batch-deadline-ms", type=float, default=2000.0,
+                    help="with --serve: batch-class deadline")
+    ap.add_argument("--arrival", default="poisson",
+                    choices=("poisson", "bursty"),
+                    help="with --serve: arrival process (bursty = on/off "
+                         "modulated Poisson)")
+    ap.add_argument("--interactive-recall-target", type=float, default=0.85,
+                    help="with --serve --calibrate: interactive class's "
+                         "recall target (--recall-target is the batch "
+                         "class's)")
     args = ap.parse_args(argv)
     if args.disk and args.backend != "tiered":
         ap.error("--disk serves the tiered backend's slow tier")
@@ -135,8 +281,18 @@ def main(argv=None) -> None:
                  "engine; pass --adaptive as well")
     if args.joint and not args.calibrate:
         ap.error("--joint refines --calibrate; pass both")
-    if args.filter_frac is not None and not 0.0 < args.filter_frac <= 1.0:
-        ap.error("--filter-frac must be in (0, 1]")
+    if args.serve and not args.adaptive:
+        ap.error("--serve runs per-class budget-law engines (and deadline "
+                 "hedges need the staged probe); pass --adaptive")
+    if args.serve and args.pipeline:
+        ap.error("--pipeline is the batch-stream benchmark mode; --serve "
+                 "paces individual requests through the front door")
+    if args.filter_frac is not None:
+        if not 0.0 < args.filter_frac <= 1.0:
+            ap.error("--filter-frac must be in (0, 1]")
+        if args.serve:
+            ap.error("--filter-frac drives the batch benchmark; the front "
+                     "door paces unfiltered requests")
 
     from repro_torch import serving
     from repro_torch.core import build, distance, online, search
@@ -157,9 +313,15 @@ def main(argv=None) -> None:
                                 batch=args.build_batch)
         t0 = time.time()
         timings: dict = {}
-        build_fn = (online.build_online_mcgi if args.online
-                    else build.build_mcgi)
-        graph = build_fn(x, cfg, progress=print, device=dev, timings=timings)
+        if args.online:
+            graph = online.build_online_mcgi(x, cfg, progress=print,
+                                             device=dev, timings=timings)
+        elif args.vamana:
+            graph = build.build_vamana(x, 1.2, cfg, progress=print,
+                                       device=dev)
+        else:
+            graph = build.build_mcgi(x, cfg, progress=print, device=dev,
+                                     timings=timings)
         index = build_tiered_index(x, graph, m_pq=args.m_pq, device=dev)
         print(f"[serve] built index in {time.time() - t0:.1f}s "
               f"(n={index.n}, "
@@ -192,6 +354,12 @@ def main(argv=None) -> None:
                                         device=dev)
     else:
         backend = serving.ExactBackend(x, graph.adj, graph.entry, device=dev)
+    if args.serve:
+        _serve_front_door(args, backend, queries.cpu().numpy(),
+                          gt_i.cpu().numpy(), budget_cfg)
+        if args.disk:
+            _report_disk_tier(backend, DiskTierModel())
+        return
     engine = serving.SearchEngine(backend, budget_cfg, k=args.k,
                                   beam_width=args.beam,
                                   num_buckets=args.buckets)

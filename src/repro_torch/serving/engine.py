@@ -25,16 +25,23 @@ backends, with a staged double-buffered batch pipeline (port of
 
 On the card every stage runs on the engine's own CUDA stream, and each
 flight records an event after its device work; the gather waits on it
-before the host copies.  (The fused hop loop reads its active-lane counter
-every few hops, so a dispatch returns when its walk is nearly done; the
-pipeline order is kept so that the host scheduling of one batch sits beside
-the device work of the next.)  On the CPU the stages run synchronously and
-give the same arrays.
+before the host copies.  The dispatch stage (the pipeline's first, and
+the front door's ``begin``) waits for nothing on the device: the queries
+go up through pinned memory without blocking, every constant of the
+probe and grant is filled on the card, and the probe walk's convergence
+counter is read where the flight is first read on the host (the schedule
+stage, or a partial result), which raises as
+:func:`repro_torch.core.search.run_batch` does.  On the CPU the stages run
+synchronously and give the same arrays.
 
 ``coalesce_lanes=`` merges micro-batches below the threshold into one
 dispatch and splits the results back; filters (an allowed mask per query)
 are enforced in-graph; ``begin`` / ``finish_from`` / ``partial_result`` are
-the front door's dispatch seam and deadline gather.
+the front door's dispatch seam and deadline gather.  A partial result waits
+only for its flight's probe (an event recorded right after it) and copies
+and reranks on a stream of its own, so it never queues behind the continue
+walk on the engine's stream; the continue clones the probe state, so that
+state is never written after ``begin``.
 """
 from __future__ import annotations
 
@@ -76,6 +83,17 @@ def _same_device(a: torch.device, b: torch.device) -> bool:
     cur = torch.cuda.current_device()
     return (cur if a.index is None else a.index) == (
         cur if b.index is None else b.index)
+
+
+def _to_device(a, device: torch.device) -> torch.Tensor:
+    """A host array (numpy or a CPU tensor) on ``device`` without a host
+    sync: on the card through pinned memory, copied on the current stream
+    without blocking (a pageable copy would wait for the stream); on the
+    CPU the array's own memory."""
+    t = torch.as_tensor(a)
+    if device.type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
 
 
 def _host_stats(stats):
@@ -171,9 +189,9 @@ class ExactBackend(_StagedRerankMixin):
         return torch.as_tensor(queries, dtype=torch.float32,
                                device=self.device)
 
-    def probe(self, ctxs, budget_cfg, excl=None):
+    def probe(self, ctxs, budget_cfg, excl=None, active_count=None):
         return search_mod._probe_exact(self.x, self.adj, ctxs, self.entry,
-                                       budget_cfg, excl)
+                                       budget_cfg, excl, active_count)
 
     def continue_fn(self, budget_cfg):
         def cont(st, c, b, h):
@@ -260,10 +278,10 @@ class TieredBackend(_StagedRerankMixin):
         q = torch.as_tensor(queries, dtype=torch.float32, device=self.device)
         return disk_mod._query_luts(self.index, q)
 
-    def probe(self, ctxs, budget_cfg, excl=None):
+    def probe(self, ctxs, budget_cfg, excl=None, active_count=None):
         return search_mod._probe_pq(self.index.codes, self.index.graph.adj,
                                     ctxs, self.index.graph.entry, budget_cfg,
-                                    excl)
+                                    excl, active_count)
 
     def continue_fn(self, budget_cfg):
         def cont(st, c, b, h):
@@ -389,7 +407,9 @@ class OutOfCoreBackend(_StagedRerankMixin):
     def num_nodes(self) -> int:
         return int(self.codes.shape[0])
 
-    def probe(self, ctxs, budget_cfg, excl=None):
+    def probe(self, ctxs, budget_cfg, excl=None, active_count=None):
+        """The out-of-core probe reads its frontier on the host every hop,
+        so it waits for the card anyway: ``active_count`` stays 0."""
         return disk_mod.ooc_probe(
             self.codes, ctxs, self.entry, self.num_nodes(), budget_cfg,
             self.slow_tier, io_groups=self.io_groups, excl=excl,
@@ -469,6 +489,8 @@ class _InFlight:
     ceilings: tuple[int, ...] | None = None
     dispatched: Any = None
     event: Any = None          # CUDA event after the flight's device work
+    probe_event: Any = None    # CUDA event right after the probe and grant
+    active_count: Any = None   # the probe walk's counter, read on the host
     parts: Any = None          # prefetch stage: continue outputs, host numpy
     prefetch: Any = None       # prefetch stage: the slow tier's fetch future
     walk_prefetch: Any = None  # future of the first-frontier adjacency reads
@@ -501,7 +523,9 @@ class SearchEngine:
         self._close_lock = threading.Lock()
         self._closed = False
         dev = backend.device
-        self._stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+        cuda = dev.type == "cuda"
+        self._stream = torch.cuda.Stream(dev) if cuda else None
+        self._partial_stream = torch.cuda.Stream(dev) if cuda else None
 
     # ------------------------------------------------------------- serving
 
@@ -627,7 +651,8 @@ class SearchEngine:
 
     def begin(self, queries, *, filter=None) -> _InFlight:
         """The dispatch stage alone (admission + probe, or the whole
-        fixed-beam walk); pair with :meth:`finish_from`."""
+        fixed-beam walk); pair with :meth:`finish_from`.  Staged, it waits
+        for nothing on the card (see the module docstring)."""
         return self._dispatch(queries, filter)
 
     def finish_from(self, f: _InFlight) -> BatchResult:
@@ -650,9 +675,12 @@ class SearchEngine:
         through the normal finish path.  The flight is not consumed."""
         if not self.supports_partial:
             raise ValueError("partial results need a staged engine")
-        with self._on_stream():
+        with self._on_stream(self._partial_stream):
+            if f.probe_event is not None:
+                self._partial_stream.wait_event(f.probe_event)
             parts = tuple(a.cpu().numpy()
                           for a in f.backend.partial_parts(f.probe_state))
+            self._check_probe(f)
             budgets_np = (f.budgets_np if f.budgets_np is not None
                           else f.budgets.cpu().numpy())
             res = f.backend.finish(f.queries, parts, self.k, q_lid=f.q_lid,
@@ -662,10 +690,18 @@ class SearchEngine:
 
     # ------------------------------------------------------ pipeline stages
 
-    def _on_stream(self):
-        if self._stream is None:
+    def _on_stream(self, stream=None):
+        stream = self._stream if stream is None else stream
+        if stream is None:
             return contextlib.nullcontext()
-        return torch.cuda.stream(self._stream)
+        return torch.cuda.stream(stream)
+
+    @staticmethod
+    def _check_probe(f: _InFlight) -> None:
+        """The read of the probe walk's counter that ``begin`` left to the
+        first host read of the flight."""
+        if f.active_count is not None:
+            search_mod.check_converged(f.active_count)
 
     def _mark(self, f: _InFlight) -> _InFlight:
         if self._stream is not None:
@@ -676,7 +712,8 @@ class SearchEngine:
     def _pack_filter(self, flt, nq: int):
         """Exclusion words of an allowed mask: a (Q, n) mask packs row by
         row; a shared (n,) mask packs once into one row of words, expanded
-        to (Q, ceil(n/32)) on the device (a view: the walk clones it)."""
+        to (Q, ceil(n/32)) on the device (a view: the walk clones it).
+        Copied up without a host sync (:func:`_to_device`)."""
         if flt is None:
             return None
         n = self.backend.num_nodes()
@@ -685,10 +722,16 @@ class SearchEngine:
         if not shared and allowed.shape != (nq, n):
             raise ValueError(f"filter mask shape {allowed.shape} != "
                              f"({nq}, {n})")
-        words = search_mod.pack_filter(allowed, n, device=self.backend.device)
+        words = _to_device(search_mod.pack_filter(allowed, n, device="cpu"),
+                           self.backend.device)
         return words.expand(nq, -1) if shared else words
 
     def _dispatch(self, queries, flt=None) -> _InFlight:
+        """Admission and probe (or the whole fixed-beam walk) on the
+        engine's stream, waiting for nothing on the card: the copies go up
+        through pinned memory, and the probe walk's counter is left for the
+        first host read of the flight (:meth:`_schedule`, or
+        :meth:`partial_result`)."""
         backend = copy.copy(self.backend)
         queries = np.array(queries, dtype=np.float32)   # owned, writable
         with self._on_stream():
@@ -696,20 +739,23 @@ class SearchEngine:
                 self._stream.wait_stream(
                     torch.cuda.current_stream(backend.device))
             excl = self._pack_filter(flt, queries.shape[0])
+            q = _to_device(queries, backend.device)
             if not self._staged():
-                q = torch.as_tensor(queries, device=backend.device)
                 handles = backend.fixed(q, beam_width=self.beam_width,
                                         max_hops=self.max_hops, k=self.k,
                                         excl=excl)
                 return self._mark(_InFlight(queries=queries, backend=backend,
                                             excl=excl, handles=handles))
-            ctxs = backend.admit(queries)
+            left = torch.zeros((1,), dtype=torch.int32, device=q.device)
+            ctxs = backend.admit(q)
             probe_state, budgets, hop_limits, q_lid = backend.probe(
-                ctxs, self.budget_cfg, excl=excl)
-        return self._mark(_InFlight(
+                ctxs, self.budget_cfg, excl=excl, active_count=left)
+        f = self._mark(_InFlight(
             queries=queries, backend=backend, excl=excl, ctxs=ctxs,
             probe_state=probe_state, budgets=budgets, hop_limits=hop_limits,
-            q_lid=q_lid))
+            q_lid=q_lid, active_count=left))
+        f.probe_event = f.event
+        return f
 
     def _schedule(self, f: _InFlight) -> _InFlight:
         """Host-bucket stage: sync the granted budgets, pick the bucket
@@ -719,6 +765,7 @@ class SearchEngine:
         cfg = self.budget_cfg
         with self._on_stream():
             f.budgets_np = f.budgets.cpu().numpy()
+            self._check_probe(f)
             sched = f.backend.schedule_budgets(f.budgets_np)
             f.ceilings = self._resolve_ceilings(sched, cfg)
             cont = f.backend.continue_fn(cfg)
