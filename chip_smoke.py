@@ -172,6 +172,36 @@ Phases, each printed on its own lines; any failure exits non-zero:
    the merge's seconds and the batches served during it (at half the
    closed loop's load: each batch is followed by a pause as long as it
    took);
+3h. [dist] distributed MCGI at phase 3's data: the 1M rows in 8 shards of
+   125,000 on a (2, 4) ("data", "model") mesh on the card, shard s owning
+   rows [125,000 s, 125,000 (s + 1)) (``build_sharded_arrays``: one
+   ``build_with_alpha`` a shard at the config's R and L_build, static
+   alpha 1.2, PQ m=16 over the whole collection; the rewire walks through
+   ``beam_step`` exact); the stream served staged (the config's law, 4
+   budget buckets, hierarchical merge; pipelined and per batch), by the
+   monolithic adaptive step (an engine with no budget config) and by a
+   fixed-beam monolithic step at l_search; ``distributed_search`` with
+   both merges on batch 0; shard 3 dropped after the second result of a
+   pipelined stream; one law fitted per shard to 0.95
+   (``calibrate_budget_law_per_shard`` over ``shard_exact_recall_evals``,
+   256 held-out queries, each shard's ground truth through
+   ``l2_distance`` + ``topk``) and served; identity per-shard laws; a
+   virtual-clock front door (256 single requests in dispatches of 8, one
+   class, the shard dropped half way); ``begin`` of the staged and
+   monolithic engines under sync debug mode "error".  Fails unless
+   staged recall@10 >= 0.80, pipelined = per batch = monolithic bit for
+   bit, flat = hierarchical (ids and d2), no id of the dead shard after
+   the flip and every d2 finite, recall after the flip >= recall before
+   - 1/8 - 0.08, the fitted laws serve recall@10 >= 0.80, identity laws
+   equal the scalar law bit for bit, every door lane equals a direct
+   search and none holds the dead shard's ids after the flip, no
+   partials are offered, ``begin`` waits for nothing, and ``beam_step``
+   pq and exact, ``l2_distance`` and ``topk`` launched on the path.
+   Prints each shard's build seconds, each run's QPS and batch p50 /
+   p99, mean granted budget and hops a query, the hierarchical merge's
+   stream ms a batch (CUDA events around it, the host's launch gaps
+   included) and one merge's device ms (queued behind a sleep kernel), each
+   shard's fitted law and the fit's seconds;
 4. the LM paths, with the MCGI world freed — qwen2-7b at full width
    (``repro_torch/configs/qwen2_7b.py``: 28 layers, d_model 3584, 28 query
    and 4 KV heads, d_ff 18944, vocab 152064, QKV bias), weights drawn from
@@ -274,6 +304,10 @@ LIVE_DELETES = 10_000
 LIVE_RECALL_FLOOR = 0.75
 LIVE_SELF_FLOOR = 0.9     # self-queries the walk finds after the merge
 LIVE_MERGE_DUTY = 0.5     # share of the merge's time spent serving
+DIST_MESH, DIST_AXES = (2, 4), ("data", "model")    # [dist]: 8 shards
+DIST_ALPHA = 1.2          # the reference's static alpha for shard builds
+DIST_DEAD = 3             # the shard dropped mid-stream
+DIST_DOOR_LANES, DIST_DOOR_GROUPS = 8, 32           # 256 single requests
 
 
 def sift1m():
@@ -1302,7 +1336,8 @@ def serve_run(name, engine, batches, gts, n, pipelined: bool,
             raise AssertionError(f"{name}: non-finite distance for a valid id")
         recalls.append(float(distance.recall_at_k(torch.as_tensor(res.ids),
                                                   torch.as_tensor(gts[bi]))))
-        hops.append(float(np.mean(res.stats.hops)))
+        if res.stats is not None:     # the monolithic step has no counters
+            hops.append(float(np.mean(res.stats.hops)))
         if res.astats is not None:
             budgets.append(float(np.mean(res.astats.budget)))
         if keep is not None:
@@ -1317,11 +1352,13 @@ def serve_run(name, engine, batches, gts, n, pipelined: bool,
              p50_ms=float(np.percentile(steady, 50)),
              p99_ms=float(np.percentile(steady, 99)),
              mean_budget=float(np.mean(budgets)) if budgets else None,
-             mean_hops=float(np.mean(hops)), launches=launches)
+             mean_hops=float(np.mean(hops)) if hops else None,
+             launches=launches)
+    hops_s = "none" if not hops else f"{m['mean_hops']:.2f}"
     log(f"[serve] {name}: recall@10={m['recall']:.4f} qps={m['qps']:.1f} "
         f"batch_lat p50={m['p50_ms']:.1f}ms p99={m['p99_ms']:.1f}ms "
         f"first={lat[0]:.1f}ms "
-        f"meanL={m['mean_budget']} hops/query={m['mean_hops']:.2f} "
+        f"meanL={m['mean_budget']} hops/query={hops_s} "
         f"launches={ {k: v for k, v in launches.items() if v} }")
     return m
 
@@ -2980,6 +3017,295 @@ def live_path(world, tmp: str, card: str, seed: int,
     return counts
 
 
+# ------------------------------------------------------- phase 3h: [dist]
+
+def same_results(name, got, want) -> None:
+    import numpy as np
+
+    for i, (g, w) in enumerate(zip(got, want)):
+        if not (np.array_equal(g.ids, w.ids) and np.array_equal(g.d2, w.d2)):
+            raise AssertionError(f"[dist] {name}: batch {i} differs")
+
+
+def merge_timer(ss):
+    """Wrap ``ss._hedged_merge`` so each call records CUDA events around it
+    on the current stream and keeps its last call's arguments; returns
+    (restore, pairs, last).  The time between the events is stream time:
+    it holds the card's waits for the host between the merge's launches."""
+    import torch
+
+    real, pairs, last = ss._hedged_merge, [], {}
+
+    def timed(*args, **kw):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+            enable_timing=True)
+        a.record()
+        out = real(*args, **kw)
+        b.record()
+        pairs.append((a, b))
+        last.update(fn=real, args=args, kw=kw)
+        return out
+
+    ss._hedged_merge = timed
+
+    def restore():
+        ss._hedged_merge = real
+    return restore, pairs, last
+
+
+def merge_device_ms(last) -> tuple[float, float]:
+    """(device ms, host ms) of one merge on a batch's own inputs (the last
+    call :func:`merge_timer` saw), timed as phase 2 times a kernel: calls
+    queued behind a sleep kernel, so the events hold the device's work
+    alone, without the host's gaps between the merge's launches."""
+    return time_calls(lambda: last["fn"](*last["args"], **last["kw"]),
+                      hold=True)
+
+
+def dist_path(world, card: str, seed: int) -> dict:
+    """[dist]: phase 3's 1M rows in 8 shards of 125,000 on a (2, 4)
+    ("data", "model") mesh on the card, one sub-graph built per shard
+    (``build_sharded_arrays``: R, L_build of the config, static alpha 1.2,
+    PQ m=16 over the whole collection); the stream served staged
+    (pipelined and per batch, hierarchical merge, 4 budget buckets, the
+    config's law), by the monolithic adaptive step and by a fixed-beam
+    monolithic step at l_search; both merges through
+    ``distributed_search``; shard 3 dropped mid-stream; one law fitted per
+    shard (``calibrate_budget_law_per_shard`` over
+    ``shard_exact_recall_evals``) and served; identity per-shard laws; a
+    virtual-clock front door over the staged engine; ``begin`` under sync
+    debug mode "error".  Returns the launch counts of the path."""
+    import numpy as np
+    import torch
+
+    from repro_torch import serving
+    from repro_torch.core import build, calibrate
+    from repro_torch.distributed import make_mesh
+    from repro_torch.distributed import sharded_search as ss
+    from repro_torch.kernels import ops
+    from repro_torch.serving import server
+
+    cfg = sift1m()
+    x = world["tiered"].index.vectors                 # phase 3's rows
+    n, dev = x.shape[0], x.device
+    batches, gts, qn = world["batches"], world["gts"], world["qn"]
+    mesh = make_mesh(DIST_MESH, DIST_AXES, dev)
+    n_shards = mesh.n_shards
+    t_phase = time.perf_counter()
+    ops.reset_launch_counts()
+    bcfg = build.BuildConfig(degree=cfg.degree, beam_width=cfg.l_build,
+                             batch=BUILD_BATCH, seed=seed)
+    t: dict = {}
+    t0 = time.perf_counter()
+    arrays, per = ss.build_sharded_arrays(x, mesh, build_cfg=bcfg, m_pq=M_PQ,
+                                          alpha=DIST_ALPHA, seed=seed,
+                                          timings=t)
+    t_build = time.perf_counter() - t0
+    if per * n_shards != n:
+        raise AssertionError(f"[dist] {n} rows do not split into "
+                             f"{n_shards} shards")
+    shard_s = [t[f"shard_{s}"] for s in range(n_shards)]
+    log(f"[dist] {n_shards} shards of {per} on a {DIST_MESH} {DIST_AXES} "
+        f"mesh on {dev}: sub-graph builds (R={bcfg.degree} "
+        f"L={bcfg.beam_width} alpha={DIST_ALPHA} batch={bcfg.batch}) "
+        f"{[round(v, 1) for v in shard_s]} s, sum {sum(shard_s):.1f} s; PQ "
+        f"m={M_PQ} {t['pq']:.1f} s; {t_build:.1f} s in all; on the card "
+        f"{sum(int(a.numel() * a.element_size()) for a in arrays.values()) / 1e9:.2f} "
+        f"GB with the vectors ({card})")
+    budget = cfg.beam_budget()
+    # One chunk a batch: the monolithic step takes whole chunks.
+    kw = dict(beam_width=cfg.l_search, max_hops=cfg.max_hops, k=cfg.k,
+              query_chunk=batches[0].shape[0])
+    back = serving.DistributedBackend(mesh, arrays, beam_budget=budget,
+                                      budget_buckets=cfg.budget_buckets, **kw)
+    staged = serving.SearchEngine(back, budget, k=cfg.k)
+    mono = serving.SearchEngine(back, None, k=cfg.k)
+    fixed = serving.SearchEngine(serving.DistributedBackend(mesh, arrays, **kw),
+                                 None, k=cfg.k)
+    if staged.supports_partial:
+        raise AssertionError("[dist] the distributed engine offers partials")
+    for eng in (staged, mono, fixed):                 # warm-up
+        eng.search(batches[0])
+    runs, keep = {}, {}
+    restore, pairs, last = merge_timer(ss)
+    try:
+        for name, eng, piped in (("staged pipelined", staged, True),
+                                 ("staged per batch", staged, False),
+                                 ("monolithic adaptive", mono, False),
+                                 ("fixed beam 128", fixed, False)):
+            keep[name] = []
+            runs[name] = serve_run(f"[dist] {name}", eng, batches, gts, n,
+                                   piped, keep=keep[name])
+            if name == "staged per batch":
+                torch.cuda.synchronize()
+                merge_ms = [a.elapsed_time(b) for a, b in pairs]
+            pairs.clear()
+    finally:
+        restore()
+    same_results("staged per batch vs pipelined", keep["staged per batch"],
+                 keep["staged pipelined"])
+    same_results("monolithic vs staged", keep["monolithic adaptive"],
+                 keep["staged pipelined"])
+    merge_dev, merge_host = merge_device_ms(last)
+    log(f"[dist] staged pipelined = per batch = monolithic, bit for bit; "
+        f"hierarchical merge {np.median(merge_ms):.4f} ms a batch of stream "
+        f"time between CUDA events around it (median of {len(merge_ms)}; "
+        f"the host's launch gaps included); one merge {merge_dev:.4f} ms "
+        f"of device time ({merge_host:.4f} ms of host time to launch it; "
+        f"behind a sleep kernel, median of 5 rounds of 20); {card}")
+    rec = runs["staged pipelined"]["recall"]
+    if rec < RECALL_FLOOR:
+        raise AssertionError(f"[dist] staged recall@10 {rec:.4f} < "
+                             f"{RECALL_FLOOR}")
+
+    # Both merges through distributed_search on one batch.
+    q0 = torch.as_tensor(batches[0], device=dev)
+    merged = {m: ss.distributed_search(mesh, arrays, q0, merge=m,
+                                       beam_budget=budget,
+                                       budget_buckets=cfg.budget_buckets,
+                                       **kw)
+              for m in ("flat", "hierarchical")}
+    f, h = ([a.cpu().numpy() for a in merged[m]]
+            for m in ("flat", "hierarchical"))
+    if not (np.array_equal(f[1] * per + f[2], h[1] * per + h[2])
+            and np.array_equal(f[0], h[0])):
+        raise AssertionError("[dist] flat and hierarchical merges differ")
+    log("[dist] flat = hierarchical merge on batch 0 (ids and d2)")
+
+    # Shard 3 dropped after the second result of a pipelined stream (at
+    # least 8 batches, the stream's own cycled); the flights dispatched
+    # before the flip (batches 0-3) keep every shard.
+    rounds = range(max(8, len(batches)))
+    stream = [batches[i % len(batches)] for i in rounds]
+    stream_gts = [gts[i % len(batches)] for i in rounds]
+    fb = serving.DistributedBackend(mesh, arrays, beam_budget=budget,
+                                    budget_buckets=cfg.budget_buckets, **kw)
+    eng = serving.SearchEngine(fb, budget, k=cfg.k)
+    dead = np.ones(n_shards, bool)
+    dead[DIST_DEAD] = False
+    res = []
+    for i, r in enumerate(eng.search_batches(stream)):
+        res.append(r)
+        if i == 1:
+            fb.set_shard_ok(dead)
+    after = res[4:]
+    if any((r.extras["shard_ids"] == DIST_DEAD).any() for r in after):
+        raise AssertionError("[dist] the dead shard answered after the flip")
+    if not all(np.isfinite(r.d2).all() for r in after):
+        raise AssertionError("[dist] a non-finite d2 after the flip")
+    r_before = recall_of(res[:4], stream_gts[:4])
+    r_after = recall_of(after, stream_gts[4:])
+    if r_after < r_before - 1.0 / n_shards - 0.08:
+        raise AssertionError(f"[dist] recall after the fault {r_after:.4f} "
+                             f"< {r_before:.4f} - 1/{n_shards} - 0.08")
+    log(f"[dist] shard {DIST_DEAD} dropped after result 1 of a pipelined "
+        f"stream of {len(stream)}: batches 4-{len(stream) - 1} hold no id of "
+        f"it, every d2 finite; recall@10 {r_before:.4f} -> {r_after:.4f} "
+        f"(floor {r_before - 1.0 / n_shards - 0.08:.4f})")
+
+    # One law per shard, fitted on shard-local held-out queries, served.
+    t0 = time.perf_counter()
+    fit = calibrate.calibrate_budget_law_per_shard(
+        calibrate.shard_exact_recall_evals(
+            arrays["vectors"], arrays["adj"], arrays["entries"], qn,
+            n_shards, k=cfg.k, sample=CALIB_SAMPLE, device=dev),
+        budget, cfg.recall_target, n_shards, joint=True)
+    t_fit = time.perf_counter() - t0
+    for s, r in enumerate(fit.results):
+        log(f"[dist] shard {s} fit: lam={fit.lam[s]:.4f} "
+            f"l_min={fit.l_min[s]} hop_factor={fit.hop_factor[s]} "
+            f"recall={r.recall:.4f} "
+            f"{'achieved' if r.achieved else 'MISSED'} "
+            f"({len(r.history)} evaluations)")
+    law = fit.serving_budget(budget)
+    fitted = serving.SearchEngine(serving.DistributedBackend(
+        mesh, arrays, beam_budget=law, budget_buckets=cfg.budget_buckets,
+        shard_laws=fit.law_arrays(), **kw), law, k=cfg.k)
+    fitted.search(batches[0])
+    runs["fitted"] = serve_run("[dist] per-shard fitted laws, pipelined",
+                               fitted, batches, gts, n, True)
+    log(f"[dist] per-shard fit to {cfg.recall_target} on {CALIB_SAMPLE} "
+        f"held-out queries a shard in {t_fit:.1f} s "
+        f"({'achieved' if fit.achieved else 'MISSED on some shard'}); "
+        f"served with hop_factor {law.hop_factor}")
+    if runs["fitted"]["recall"] < RECALL_FLOOR:
+        raise AssertionError(f"[dist] fitted laws served recall@10 "
+                             f"{runs['fitted']['recall']:.4f} < "
+                             f"{RECALL_FLOOR}")
+    ident = serving.SearchEngine(serving.DistributedBackend(
+        mesh, arrays, beam_budget=budget, budget_buckets=cfg.budget_buckets,
+        shard_laws=cfg.shard_budget_laws(n_shards), **kw), budget, k=cfg.k)
+    same_results("identity per-shard laws vs the scalar law",
+                 [ident.search(b) for b in batches], keep["staged pipelined"])
+    log("[dist] identity per-shard laws = the scalar law, bit for bit")
+
+    # A virtual-clock front door over the staged engine, one class.
+    clock = server.VirtualClock()
+    door = server.FrontDoor(
+        {"c": staged}, [server.QoSClass("c", deadline_s=60.0,
+                                        batch_window_s=0.01,
+                                        max_lanes=DIST_DOOR_LANES)],
+        clock=clock, dispatcher=server.VirtualDispatcher(clock))
+    lanes = 0
+    for g in range(DIST_DOOR_GROUPS):
+        if g == DIST_DOOR_GROUPS // 2:
+            back.set_shard_ok(dead)
+        rows = qn[g * DIST_DOOR_LANES:(g + 1) * DIST_DOOR_LANES]
+        want = staged.search(rows)
+        futs = [door.submit(r) for r in rows]
+        clock.advance(0.05)
+        for i, fut in enumerate(futs):
+            r = fut.result(timeout=0)
+            if r.status != "ok" or not (np.array_equal(r.ids, want.ids[i])
+                                        and np.array_equal(r.d2, want.d2[i])):
+                raise AssertionError(f"[dist] door lane {lanes}: {r.status},"
+                                     f" not the direct search's")
+            if (g >= DIST_DOOR_GROUPS // 2
+                    and (np.asarray(r.extras["shard_ids"]) == DIST_DEAD).any()):
+                raise AssertionError("[dist] door: the dead shard answered")
+            lanes += 1
+    door.close(wait=True, timeout=60)
+    back.set_shard_ok(np.ones(n_shards, bool))
+    log(f"[dist] front door (virtual clock, {lanes} single requests in "
+        f"dispatches of {DIST_DOOR_LANES}): every lane equal to a direct "
+        f"search; shard {DIST_DEAD} dropped after {DIST_DOOR_GROUPS // 2} "
+        f"dispatches, none of its ids after; supports_partial False")
+
+    # begin waits for nothing on the card, staged and monolithic.
+    for name, eng in (("staged", staged), ("monolithic", mono)):
+        want = eng.search(batches[0])
+        f0 = no_host_sync(eng.begin)(batches[0])
+        same_results(f"{name} begin under sync debug mode",
+                     [eng.finish_from(f0)], [want])
+    log("[dist] begin of the staged and monolithic engines under sync "
+        "debug mode \"error\": no host sync, results equal to search")
+    counts = ops.launch_counts()
+    log(f"[dist] kernel launches on the dist path: "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    for name in ("beam_step.pq", "beam_step.exact", "l2_distance", "topk"):
+        if counts[name] == 0:
+            raise AssertionError(f"[dist] {name} was never launched on the "
+                                 f"dist path")
+    for name, m in runs.items():
+        log(f"[dist] {name}: qps {m['qps']:.1f}, batch p50 "
+            f"{m['p50_ms']:.1f} ms p99 {m['p99_ms']:.1f} ms, recall@10 "
+            f"{m['recall']:.4f}, mean budget {m['mean_budget']}, hops a "
+            f"query {m['mean_hops']} ({card})")
+    log(f"[dist] phase in {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
+def recall_of(results, gts) -> float:
+    import numpy as np
+    import torch
+
+    from repro_torch.core import distance
+
+    return float(np.mean([float(distance.recall_at_k(
+        torch.as_tensor(r.ids), torch.as_tensor(g)))
+        for r, g in zip(results, gts)]))
+
+
 # ------------------------------------------------------------- phase 4: LM
 
 def lm_params(dev, seed: int):
@@ -3310,6 +3636,7 @@ def main(argv=None) -> int:
                                   deletes=cut)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    paths["dist"] = dist_path(world, card, args.seed)
     del world
     torch.cuda.empty_cache()
     lm_counts, attn_err = lm_paths(dev, args.seed)

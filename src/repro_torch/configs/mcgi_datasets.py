@@ -4,12 +4,13 @@
 Build parameters (R, L_build, alpha range, m_PQ) are the paper's Table 2
 values; the serving defaults are the jointly calibrated budget laws of the
 reference.  The reference's dry-run registry (``base.register`` /
-``ArchSpec``) and the per-shard law fields wait for the port's launch and
-distributed slices.
+``ArchSpec``) waits for the port's launch slice.
 """
 from __future__ import annotations
 
 import dataclasses
+
+import numpy as np
 
 from repro_torch.core import calibrate as calibrate_mod
 from repro_torch.core.search import AdaptiveBeamBudget
@@ -39,6 +40,10 @@ class McgiDatasetConfig:
     hop_factor: int = 4
     recall_target: float = 0.95
     budget_buckets: int = 4      # ceiling of the auto-picked bucket family
+    # Per-shard budget laws (calibrate_budget_law_per_shard on shard-local
+    # held-out queries); None broadcasts the global (lam, l_min).
+    shard_lam: tuple[float, ...] | None = None
+    shard_l_min: tuple[int, ...] | None = None
 
     def beam_budget(self) -> AdaptiveBeamBudget:
         """The serving engine's budget law for this dataset: l_max =
@@ -49,6 +54,24 @@ class McgiDatasetConfig:
             l_min=min(l_min, self.l_search), l_max=self.l_search,
             lam=self.lam, probe_hops=self.probe_hops,
             hop_factor=self.hop_factor)
+
+    def shard_budget_laws(self, n_shards: int):
+        """Per-shard (lam (S,) float32, l_min (S,) int32) arrays for the
+        distributed step.  Stored per-shard fits must have ``n_shards``
+        entries; with none stored the global law broadcasts (results equal
+        to the scalar law's)."""
+        base = self.beam_budget()
+        if self.shard_lam is not None or self.shard_l_min is not None:
+            lam = (self.shard_lam if self.shard_lam is not None
+                   else (base.lam,) * n_shards)
+            l_min = (self.shard_l_min if self.shard_l_min is not None
+                     else (base.l_min,) * n_shards)
+            if len(lam) != n_shards or len(l_min) != n_shards:
+                raise ValueError(f"{len(lam)} lam / {len(l_min)} l_min "
+                                 f"entries for {n_shards} shards")
+            return np.asarray(lam, np.float32), np.asarray(l_min, np.int32)
+        return (np.full((n_shards,), base.lam, np.float32),
+                np.full((n_shards,), base.l_min, np.int32))
 
     def jointly_calibrated_beam_budget(self, make_eval) -> AdaptiveBeamBudget:
         """Joint (lam, l_min) re-fit against this dataset's recall target

@@ -14,8 +14,11 @@ only on the shape knobs (l_min, l_max, probe_hops, lid_k), so each
 candidate re-runs only the continue phase with its own budgets and hop
 limits.  Deterministic end to end under a fixed seed.
 
-The per-shard fits (``ShardCalibration``, ``calibrate_budget_law_per_shard``,
-``shard_exact_recall_evals``) wait for the port's distributed slice.
+The distributed path fits one law per shard
+(:func:`calibrate_budget_law_per_shard` over
+:func:`shard_exact_recall_evals`): each shard's sub-graph has its own
+geometry, and the per-shard (lam, l_min) tensors reach the distributed step
+as runtime inputs (:meth:`ShardCalibration.law_arrays`).
 """
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.core import distance as distance_mod
 from repro_torch.core import mapping as mapping_mod
 from repro_torch.core import search as search_mod
@@ -197,6 +201,98 @@ def class_budget_cfgs(results: dict[str, CalibrationResult],
                       base_cfg: Budget) -> dict[str, Budget]:
     """Per-class serving configs from :func:`calibrate_budget_law_per_class`."""
     return {name: r.budget_cfg(base_cfg) for name, r in results.items()}
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardCalibration:
+    """Per-shard budget laws fitted by :func:`calibrate_budget_law_per_shard`:
+    the fitted knobs, one entry per shard, and each shard's full
+    :class:`CalibrationResult` in shard order."""
+
+    lam: tuple[float, ...]
+    l_min: tuple[int, ...]
+    hop_factor: tuple[int, ...]
+    results: tuple[CalibrationResult, ...]
+
+    @property
+    def achieved(self) -> bool:
+        return all(r.achieved for r in self.results)
+
+    def law_arrays(self) -> tuple[np.ndarray, np.ndarray]:
+        """The (lam (S,) float32, l_min (S,) int32) arrays the distributed
+        step takes (``DistributedBackend(shard_laws=)``).  Deploy with
+        :meth:`serving_budget`: ``hop_factor`` is not a per-shard input."""
+        return (np.asarray(self.lam, np.float32),
+                np.asarray(self.l_min, np.int32))
+
+    def serving_budget(self, base: Budget) -> Budget:
+        """``base`` with ``hop_factor`` raised to the largest fitted one, so
+        no shard serves under a tighter hop limit than it was fitted at
+        (hop limits are caps: easy shards still stop when their frontier
+        closes)."""
+        return dataclasses.replace(base, hop_factor=max(self.hop_factor))
+
+
+def calibrate_budget_law_per_shard(
+        make_shard_eval: Callable[[int], Callable[[Budget],
+                                                  Callable[[Budget], float]]],
+        base_cfg: Budget, recall_target: float, n_shards: int, *,
+        joint: bool = True, **fit_kw) -> ShardCalibration:
+    """One budget law per shard of a distributed index.
+
+    ``make_shard_eval(s)`` returns shard ``s``'s evaluator factory (config
+    -> recall evaluator on shard-local held-out queries, see
+    :func:`shard_exact_recall_evals`).  Each shard runs the joint
+    (lam, l_min) fit (the lam fit with ``joint=False``) against the same
+    target, shard by shard."""
+    results = []
+    for s in range(n_shards):
+        factory = make_shard_eval(s)
+        if joint:
+            r = calibrate_budget_law_joint(factory, base_cfg, recall_target,
+                                           **fit_kw)
+        else:
+            r = calibrate_budget_law(factory(base_cfg), base_cfg,
+                                     recall_target, **fit_kw)
+        results.append(r)
+    return ShardCalibration(
+        lam=tuple(float(r.lam) for r in results),
+        l_min=tuple(int(r.l_min if r.l_min is not None else base_cfg.l_min)
+                    for r in results),
+        hop_factor=tuple(int(r.hop_factor) for r in results),
+        results=tuple(results))
+
+
+def shard_exact_recall_evals(vectors, adj, entries, queries, n_shards: int, *,
+                             k: int = 10, sample: int = 256, seed: int = 0,
+                             device="cuda") -> Callable[[int], Callable]:
+    """``make_shard_eval`` over a shard-major distributed layout: shard
+    ``s`` owns rows ``[s*per, (s+1)*per)`` of ``vectors`` / ``adj`` (with
+    shard-local ids), ``entries`` holds the per-shard medoids.  Shard
+    recall is measured by the exact-distance adaptive walk against the
+    shard's own exact top-k (one :func:`~repro_torch.core.distance
+    .brute_force_topk` per shard, through the ``l2_distance`` and ``topk``
+    kernels on the card); every shard draws the same held-out sample."""
+    dev = resolve_device(device)
+    vectors = torch.as_tensor(vectors, dtype=torch.float32, device=dev)
+    adj = torch.as_tensor(adj, dtype=torch.int32, device=dev)
+    entries = torch.as_tensor(entries, dtype=torch.int32, device=dev)
+    queries = torch.as_tensor(queries, dtype=torch.float32, device=dev)
+    per = adj.shape[0] // n_shards
+
+    def make_shard_eval(s: int) -> Callable:
+        x_s = vectors[s * per:(s + 1) * per]
+        adj_s = adj[s * per:(s + 1) * per]
+        _, gt_s = distance_mod.brute_force_topk(queries, x_s, k=k)
+
+        def factory(cfg: Budget) -> Callable[[Budget], float]:
+            return exact_recall_eval(x_s, adj_s, entries[s], queries, gt_s,
+                                     k=k, sample=sample, seed=seed,
+                                     base_cfg=cfg)
+
+        return factory
+
+    return make_shard_eval
 
 
 def _candidate_grants(cfg: Budget, q_lid: torch.Tensor):

@@ -58,8 +58,9 @@ def adaptive_beam_budget(lid: torch.Tensor, lam, l_min, l_max: int,
                          mu=None) -> torch.Tensor:
     """Prop. 4.2's budget L(q) = C * exp(lam * (LID(q) - center)), normalised
     so an average query gets sqrt(l_min * l_max), rounded half to even,
-    clipped to [l_min, l_max].  (Q,) int32."""
+    clipped to [l_min, l_max].  (Q,) int32.  ``lam`` and ``l_min`` may be
+    0-dim tensors (a shard's calibrated law, float32 and int32)."""
     center = lid.mean() if mu is None else mu
-    l_mid = torch.sqrt(_f32(l_min, lid.device) * _f32(l_max, lid.device))
-    budget = l_mid * torch.exp(lam * (lid - center))
-    return torch.clamp(torch.round(budget), l_min, l_max).to(torch.int32)
+    lo, hi = _f32(l_min, lid.device), _f32(l_max, lid.device)
+    budget = torch.sqrt(lo * hi) * torch.exp(lam * (lid - center))
+    return torch.clamp(torch.round(budget), lo, hi).to(torch.int32)

@@ -252,12 +252,15 @@ def run_batch(states, ctxs, adj, eval_dists: DistEval, beam_width: int,
 
 
 def fixed_search_batch(ctxs, adj, entry, eval_dists: DistEval, n: int,
-                       beam_width: int, max_hops: int, excl=None):
+                       beam_width: int, max_hops: int, excl=None,
+                       active_count=None):
     """Batched fixed-beam walk: init every lane, hand the batch to
-    :func:`run_batch`; ``excl`` filters the walk in-graph."""
+    :func:`run_batch`; ``excl`` filters the walk in-graph.
+    ``active_count``: see :func:`run_batch`."""
     states = _init_state(ctxs, entry, eval_dists, n, beam_width, excl)
     beam_ids, beam_d, _, _, hops, evals = run_batch(
-        states, ctxs, adj, eval_dists, beam_width, max_hops)
+        states, ctxs, adj, eval_dists, beam_width, max_hops,
+        active_count=active_count)
     if excl is not None:
         beam_ids, beam_d = scrub_excluded(beam_ids, beam_d, excl)
     return beam_ids, beam_d, SearchStats(hops=hops, dist_evals=evals)
@@ -323,12 +326,19 @@ def budget_bucket_ceilings(l_min: int, l_max: int,
 
 
 def quantize_budgets(budgets: torch.Tensor, ceilings: tuple[int, ...]):
-    """Round each budget *up* to its bucket ceiling: (bucket_index, budget)."""
-    ceil_arr = torch.as_tensor(ceilings, dtype=torch.int32,
-                               device=budgets.device)
-    idx = torch.searchsorted(ceil_arr, budgets.to(torch.int32).contiguous(),
-                             side="left").clamp_max(len(ceilings) - 1)
-    return idx, ceil_arr[idx]
+    """Round each budget *up* to its bucket ceiling: (bucket_index, budget),
+    the first ascending ceiling >= the budget (the last one past them all).
+    The ceilings enter as numbers, so nothing is copied to the device (a
+    copy from pageable memory would wait for the stream)."""
+    b = budgets.to(torch.int32)
+    last = len(ceilings) - 1
+    idx = torch.full(b.shape, last, dtype=torch.int64, device=b.device)
+    out = torch.full_like(b, int(ceilings[last]))
+    for i in range(last, -1, -1):
+        fits = b <= int(ceilings[i])
+        idx = torch.where(fits, i, idx)
+        out = torch.where(fits, int(ceilings[i]), out)
+    return idx, out
 
 
 def _bucket_hop_limits(budget_cfg: AdaptiveBeamBudget, budgets, max_hops):
@@ -382,13 +392,13 @@ def adaptive_probe_batch(ctxs, adj, entry, eval_dists: DistEval, n: int,
 
 def adaptive_continue_batch(probe_state, ctxs, adj, eval_dists: DistEval,
                             budget_cfg: AdaptiveBeamBudget, budgets,
-                            hop_limits):
+                            hop_limits, active_count=None):
     """Phase 3: resume the probe states with per-query budgets and hop
     limits.  Returns (beam_ids, beam_d, hops, evals), counters including the
-    probe."""
+    probe.  ``active_count``: see :func:`run_batch`."""
     beam_ids, beam_d, _, _, hops, evals = run_batch(
         probe_state, ctxs, adj, eval_dists, budget_cfg.l_max,
-        hop_limits=hop_limits, budgets=budgets)
+        hop_limits=hop_limits, budgets=budgets, active_count=active_count)
     return beam_ids, beam_d, hops, evals
 
 
@@ -396,41 +406,44 @@ def adaptive_search_batch(ctxs, adj, entry, eval_dists: DistEval, n: int,
                           budget_cfg: AdaptiveBeamBudget,
                           max_hops: int | None = None,
                           bucket_ceilings: tuple[int, ...] | None = None, *,
-                          lam=None, l_min=None, excl=None):
+                          lam=None, l_min=None, excl=None, active_count=None):
     """Probe -> budget -> continue in one call.  ``bucket_ceilings``
     quantizes each budget up to its ceiling and derives the hop limit from
-    it.  Returns (beam_ids, beam_d, stats, adaptive_stats)."""
+    it.  Returns (beam_ids, beam_d, stats, adaptive_stats).
+    ``active_count`` takes both walks' counters (see :func:`run_batch`)."""
     probe_state, budgets, hop_limits, q_lid = adaptive_probe_batch(
         ctxs, adj, entry, eval_dists, n, budget_cfg, max_hops, lam=lam,
-        l_min=l_min, excl=excl)
+        l_min=l_min, excl=excl, active_count=active_count)
     if bucket_ceilings is not None:
         _, budgets = quantize_budgets(budgets, bucket_ceilings)
         hop_limits = _bucket_hop_limits(budget_cfg, budgets, max_hops)
     beam_ids, beam_d, hops, evals = adaptive_continue_batch(
-        probe_state, ctxs, adj, eval_dists, budget_cfg, budgets, hop_limits)
+        probe_state, ctxs, adj, eval_dists, budget_cfg, budgets, hop_limits,
+        active_count=active_count)
     return (beam_ids, beam_d, SearchStats(hops=hops, dist_evals=evals),
             AdaptiveStats(q_lid=q_lid, budget=budgets))
 
 
 def beam_search_exact(x, adj, queries, entry, beam_width: int,
-                      max_hops: int = 2048, k: int = 10, excl=None):
+                      max_hops: int = 2048, k: int = 10, excl=None,
+                      active_count=None):
     """Exact-distance beam search over (Q, D) queries: (ids, d2, stats),
     (Q, k) ascending.  ``excl`` (from :func:`pack_filter`) filters
-    in-graph."""
+    in-graph; ``active_count``: see :func:`run_batch`."""
     beam_ids, beam_d, stats = fixed_search_batch(
         queries, adj, entry, _exact_eval(x), x.shape[0], beam_width,
-        max_hops, excl=excl)
+        max_hops, excl=excl, active_count=active_count)
     return beam_ids[:, :k], beam_d[:, :k], stats
 
 
 def beam_search_pq(codes, luts, x_slow, adj, queries, entry, beam_width: int,
                    max_hops: int = 2048, k: int = 10, rerank: bool = True,
-                   excl=None):
+                   excl=None, active_count=None):
     """PQ-routed beam search (codes (N, M) uint8, luts (Q, M, K)) with an
     optional full-precision rerank of the final beam from ``x_slow``."""
     beam_ids, beam_d, stats = fixed_search_batch(
         luts, adj, entry, _pq_eval(codes), codes.shape[0], beam_width,
-        max_hops, excl=excl)
+        max_hops, excl=excl, active_count=active_count)
     if rerank:
         ids, d2 = _rerank_slow_tier(beam_ids, x_slow, queries, k)
         return ids, d2, stats

@@ -2,9 +2,10 @@
 
 The arrays are plain numpy, keyed by the reference's dataclass field names
 (``adj``, ``entry``, ``alpha``, ``lid``, ``mu``, ``sigma`` for the graph;
-``centroids``, ``codes``, ``vectors`` for the tiers), so the port never
-imports the package that built them.  uint32 data keeps its bit pattern as
-int32.
+``centroids``, ``codes``, ``vectors`` for the tiers; the sharded index's
+``adj``, ``codes``, ``vectors``, ``centroids``, ``entries``), so the port
+never imports the package that built them.  uint32 data keeps its bit
+pattern as int32.
 """
 from __future__ import annotations
 
@@ -42,3 +43,14 @@ def tiered_index_from_arrays(arrays: dict, device="cuda") -> TieredIndex:
         codebook=PqCodebook(_tensor(arrays["centroids"], np.float32, dev)),
         codes=_tensor(arrays["codes"], np.uint8, dev),
         vectors=_tensor(arrays["vectors"], np.float32, dev))
+
+
+def sharded_arrays_from_arrays(arrays: dict, device="cuda") -> dict:
+    """A shard-major distributed index (the dict of
+    :func:`repro_torch.distributed.sharded_search.build_sharded_arrays`)
+    from numpy arrays of the same keys; ``entries`` is optional."""
+    dev = resolve_device(device)
+    dtypes = {"adj": np.int32, "codes": np.uint8, "vectors": np.float32,
+              "centroids": np.float32, "entries": np.int32}
+    return {name: _tensor(arrays[name], dt, dev)
+            for name, dt in dtypes.items() if name in arrays}

@@ -54,6 +54,10 @@ from repro_torch.core.types import GraphIndex
 from repro_torch.index.blockstore import BlockStore
 from repro_torch.pq import PqCodebook, build_lut, pq_encode, train_pq
 
+# Guards the add of a walk's host times into a caller's ``timings`` dict
+# (:func:`ooc_walk`): engines on several threads may share one dict.
+_TIMINGS_LOCK = threading.Lock()
+
 
 @dataclasses.dataclass(frozen=True)
 class DiskTierModel:
@@ -130,15 +134,17 @@ def codebook_luts(codebook: PqCodebook, queries: torch.Tensor) -> torch.Tensor:
 
 
 def search_tiered(index: TieredIndex, queries, beam_width: int, k: int = 10,
-                  max_hops: int = 2048, rerank: bool = True, excl=None):
-    """PQ-routed beam search with slow-tier rerank (the deployed path)."""
+                  max_hops: int = 2048, rerank: bool = True, excl=None,
+                  active_count=None):
+    """PQ-routed beam search with slow-tier rerank (the deployed path);
+    ``active_count``: see :func:`repro_torch.core.search.run_batch`."""
     queries = torch.as_tensor(queries, dtype=torch.float32,
                               device=index.device)
     luts = _query_luts(index, queries)
     return search_mod.beam_search_pq(
         index.codes, luts, index.vectors, index.graph.adj, queries,
         index.graph.entry, beam_width=beam_width, max_hops=max_hops, k=k,
-        rerank=rerank, excl=excl)
+        rerank=rerank, excl=excl, active_count=active_count)
 
 
 def search_tiered_adaptive(index: TieredIndex, queries,
@@ -640,10 +646,13 @@ def ooc_walk(codes, states, ctxs, budgets, hop_limits, beam_width: int,
     seconds spent waiting for rows (``wait_s``), copying them to the card
     (``copy_s``), launching (``launch_s``) and reading the frontier back
     (``sync_s``), and the walks and their seconds (``walks``, ``walk_s``).
+    The walk sums into a dict of its own and adds it to ``timings`` once,
+    at its end, under a lock, so walks on several threads may share one.
     """
     nq = int(ctxs.shape[0])
     if nq == 0:
         return states
+    own: dict = {}
     t_walk = time.perf_counter()
     dev = states[0].device
     budgets, hop_limits = search_mod._lane_vectors(nq, beam_width,
@@ -688,17 +697,18 @@ def ooc_walk(codes, states, ctxs, budgets, hop_limits, beam_width: int,
                 g["future"] = tier.prefetch_adj(u_h)
             else:
                 g["done"] = True
-            if timings is not None:
-                for key, dt in (("wait_s", t1 - t0), ("copy_s", t2 - t1),
-                                ("launch_s", t3 - t2), ("sync_s", t4 - t3)):
-                    timings[key] = timings.get(key, 0.0) + dt
-                timings["hops"] = timings.get("hops", 0) + 1
+            for key, dt in (("wait_s", t1 - t0), ("copy_s", t2 - t1),
+                            ("launch_s", t3 - t2), ("sync_s", t4 - t3),
+                            ("hops", 1)):
+                own[key] = own.get(key, 0) + dt
     out = (groups[0]["st"] if len(groups) == 1
            else _tree_concat([g["st"] for g in groups]))
     if timings is not None:
-        timings["walks"] = timings.get("walks", 0) + 1
-        timings["walk_s"] = (timings.get("walk_s", 0.0)
-                             + time.perf_counter() - t_walk)
+        own["walks"] = 1
+        own["walk_s"] = time.perf_counter() - t_walk
+        with _TIMINGS_LOCK:
+            for key, v in own.items():
+                timings[key] = timings.get(key, 0) + v
     return out
 
 

@@ -12,7 +12,8 @@ recall@k, QPS, batch latency, mean budget and walk hops.
          [--freq-decay 0.5]] [--io-workers W]] [--online | --vamana] \\
         [--serve [--qps 200] [--requests 256] [--interactive-frac 0.5] \\
          [--deadline-ms 100] [--batch-deadline-ms 2000] \\
-         [--arrival poisson|bursty] [--interactive-recall-target 0.85]]
+         [--arrival poisson|bursty] [--interactive-recall-target 0.85]] \\
+        [--distributed N [--calibrate --per-shard]]
 
 Modes: fixed beam, ``--adaptive`` (probe -> budget ->
 bucketed continue -> rerank), ``--buckets``, ``--pipeline`` (the
@@ -40,6 +41,15 @@ budget-law engines over the shared backend; with ``--calibrate`` one
 ``--recall-target``.  The report is per class: outcome counts, latency
 p50 / p99 against the deadline, recall, mean granted budget and walk hops.
 Timing runs on the wall-clock seam (``WallClock`` + ``ThreadDispatcher``).
+
+``--distributed N`` splits the dataset into N shards, each with its own
+locally built sub-graph (static alpha 1.2) over one PQ codebook, on a
+one-axis mesh ``(N,) ("data",)`` on the launcher's device, and serves
+scatter-gather through a ``DistributedBackend``: staged (probe, host
+bucketing, per-bucket continues into the hedged merge) with
+``--adaptive``, one monolithic step per batch otherwise.  ``--calibrate
+--per-shard`` fits one (lam, l_min) law per shard on shard-local held-out
+queries and serves them as runtime tensors.
 """
 from __future__ import annotations
 
@@ -97,6 +107,50 @@ def arrival_times(rng, n: int, qps: float, arrival: str) -> np.ndarray:
         else:
             out.append(t)
     return np.asarray(out)
+
+
+def _distributed_engine(args, x, queries, budget_cfg, cfg):
+    """Shard the dataset on a one-axis mesh on the launcher's device and
+    build the distributed serving engine (staged when adaptive; per-shard
+    budget laws with --calibrate --per-shard).  Returns (engine, x cut to
+    the sharded row count)."""
+    from repro_torch import serving
+    from repro_torch.core import calibrate
+    from repro_torch.distributed import make_mesh
+    from repro_torch.distributed import sharded_search as ss
+
+    mesh = make_mesh((args.distributed,), ("data",), args.device)
+    n_shards = mesh.n_shards
+    t0 = time.time()
+    arrays, per = ss.build_sharded_arrays(x, mesh, build_cfg=cfg,
+                                          m_pq=args.m_pq, seed=args.seed)
+    print(f"[serve] sharded build in {time.time() - t0:.1f}s: "
+          f"{per * n_shards} points over {n_shards} shards ({per}/shard)")
+    shard_laws = None
+    if args.calibrate:
+        fit = calibrate.calibrate_budget_law_per_shard(
+            calibrate.shard_exact_recall_evals(
+                arrays["vectors"], arrays["adj"], arrays["entries"], queries,
+                n_shards, k=args.k, sample=args.calib_sample,
+                device=args.device),
+            budget_cfg, recall_target=args.recall_target, n_shards=n_shards)
+        shard_laws = fit.law_arrays()
+        # hop_factor is global in the step: serve the largest fitted one.
+        budget_cfg = fit.serving_budget(budget_cfg)
+        print(f"[serve] per-shard laws "
+              f"({'hit' if fit.achieved else 'partial'}): "
+              f"lam={[round(float(v), 3) for v in shard_laws[0]]} "
+              f"l_min={shard_laws[1].tolist()} "
+              f"hop_factor={budget_cfg.hop_factor}")
+    backend = serving.DistributedBackend(
+        mesh, arrays, beam_width=args.beam, max_hops=2048, k=args.k,
+        query_chunk=args.batch, beam_budget=budget_cfg,
+        budget_buckets=4 if budget_cfg is not None else None,
+        shard_laws=shard_laws)
+    engine = serving.SearchEngine(backend, budget_cfg, k=args.k,
+                                  beam_width=args.beam,
+                                  num_buckets=args.buckets)
+    return engine, arrays["vectors"]
 
 
 def _serve_front_door(args, backend, qn, gt, budget_cfg) -> None:
@@ -224,6 +278,10 @@ def main(argv=None) -> None:
                          "before serving")
     ap.add_argument("--joint", action="store_true",
                     help="with --calibrate: fit (lam, l_min) jointly")
+    ap.add_argument("--per-shard", action="store_true",
+                    help="with --calibrate --distributed: fit one "
+                         "(lam, l_min) law per shard on shard-local "
+                         "held-out queries")
     ap.add_argument("--recall-target", type=float, default=0.95)
     ap.add_argument("--calib-sample", type=int, default=256)
     ap.add_argument("--filter-frac", type=float, default=None, metavar="F",
@@ -271,6 +329,9 @@ def main(argv=None) -> None:
                     help="with --serve --calibrate: interactive class's "
                          "recall target (--recall-target is the batch "
                          "class's)")
+    ap.add_argument("--distributed", type=int, default=0, metavar="N",
+                    help="split the dataset into N shards on the device and "
+                         "serve scatter-gather (staged with --adaptive)")
     args = ap.parse_args(argv)
     if args.disk and args.backend != "tiered":
         ap.error("--disk serves the tiered backend's slow tier")
@@ -287,12 +348,34 @@ def main(argv=None) -> None:
     if args.serve and args.pipeline:
         ap.error("--pipeline is the batch-stream benchmark mode; --serve "
                  "paces individual requests through the front door")
+    if args.serve and args.distributed:
+        ap.error("--serve is the single-host front door (the distributed "
+                 "backend has no host probe view for deadline partials)")
+    if args.per_shard and not (args.calibrate and args.distributed):
+        ap.error("--per-shard refines --calibrate for --distributed serving;"
+                 " pass all three")
+    if args.distributed and args.calibrate and not args.per_shard:
+        ap.error("distributed calibration is per-shard (shard geometry "
+                 "differs); pass --per-shard")
     if args.filter_frac is not None:
         if not 0.0 < args.filter_frac <= 1.0:
             ap.error("--filter-frac must be in (0, 1]")
+        if args.distributed:
+            ap.error("--filter-frac is single-host: the filter words are "
+                     "indexed by global node id, which the sharded walk "
+                     "has no view of")
         if args.serve:
             ap.error("--filter-frac drives the batch benchmark; the front "
                      "door paces unfiltered requests")
+    if args.distributed and (args.index or args.online or args.vamana):
+        ap.error("--distributed builds per-shard sub-graphs in process; "
+                 "--index/--online/--vamana apply to single-host serving")
+    if args.distributed and args.disk:
+        ap.error("--disk is the single-host out-of-core slow tier; the "
+                 "distributed path keeps per-shard slow tiers in memory")
+    if args.distributed and args.backend != "tiered":
+        ap.error("--distributed serves PQ-routed shards (the tiered "
+                 "backend); --backend exact is single-host")
 
     from repro_torch import serving
     from repro_torch.core import build, distance, online, search
@@ -304,13 +387,23 @@ def main(argv=None) -> None:
     dev = args.device
     x, queries = make_dataset(args.dataset, seed=args.seed, device=dev,
                               n=args.n)
+    cfg = build.BuildConfig(degree=args.degree, beam_width=args.l_build,
+                            batch=args.build_batch)
+    budget_cfg = None
+    if args.adaptive:
+        l_max = args.l_max or args.beam
+        budget_cfg = search.AdaptiveBeamBudget(
+            l_min=min(args.l_min, l_max), l_max=l_max, lam=args.lam)
+    if args.distributed:
+        engine, x = _distributed_engine(args, x, queries, budget_cfg, cfg)
+        _, gt_i = distance.brute_force_topk(queries, x, k=args.k)
+        _serve_batches(args, engine, x, queries, gt_i)
+        return
     if args.index and pathlib.Path(args.index).exists():
         index = load_index(args.index, device=dev)
         graph = index.graph
         print(f"[serve] loaded index: n={index.n}")
     else:
-        cfg = build.BuildConfig(degree=args.degree, beam_width=args.l_build,
-                                batch=args.build_batch)
         t0 = time.time()
         timings: dict = {}
         if args.online:
@@ -331,12 +424,6 @@ def main(argv=None) -> None:
         if args.index:
             save_index(args.index, index)
     _, gt_i = distance.brute_force_topk(queries, x, k=args.k)
-
-    budget_cfg = None
-    if args.adaptive:
-        l_max = args.l_max or args.beam
-        budget_cfg = search.AdaptiveBeamBudget(
-            l_min=min(args.l_min, l_max), l_max=l_max, lam=args.lam)
     slow_tier = None
     if args.disk:
         slow_tier = open_or_build_slow_tier(
@@ -374,7 +461,17 @@ def main(argv=None) -> None:
               f"recall={result.recall:.4f} (target {result.target:.2f}, "
               f"{'hit' if result.achieved else 'MISSED'}, "
               f"{len(result.history)} evals, {time.time() - t0:.1f}s)")
+    _serve_batches(args, engine, x, queries, gt_i)
+    if args.disk:
+        _report_disk_tier(backend, DiskTierModel())
 
+
+def _serve_batches(args, engine, x, queries, gt_i) -> None:
+    """The batch benchmark: ``--num-batches`` random batches, per batch or
+    pipelined, with the report line; closes the engine."""
+    from repro_torch.core import distance
+
+    dev = args.device
     qn = queries.cpu().numpy()
     xn = x.cpu().numpy()
     engine.search(qn[:args.batch])      # warm-up (kernel build on the card)
@@ -436,9 +533,11 @@ def main(argv=None) -> None:
     if args.pipeline and len(lat_ms) > 1:
         lat_ms = lat_ms[1:]   # the first completion spans the pipeline fill
     extra = f"meanL={np.mean(budgets):.1f} " if budgets else ""
+    # The monolithic distributed step reports no hop counters.
+    io_part = f"hops/query={np.mean(hops):.1f} " if hops else ""
     print(f"[serve] recall@{args.k}={np.mean(recalls):.4f} "
           f"qps={args.batch * args.num_batches / total:.1f} "
-          f"hops/query={np.mean(hops):.1f} {extra}"
+          f"{io_part}{extra}"
           f"({'pipelined' if args.pipeline else 'per-batch'}, {dev}) "
           f"batch_lat p50={np.percentile(lat_ms, 50):.1f}ms "
           f"p99={np.percentile(lat_ms, 99):.1f}ms")
@@ -446,8 +545,6 @@ def main(argv=None) -> None:
         print(f"[serve] filter enforcement: out_of_filter={out_of_filter} "
               f"(in-graph, must be 0)")
     engine.close()
-    if args.disk:
-        _report_disk_tier(backend, DiskTierModel())
 
 
 if __name__ == "__main__":

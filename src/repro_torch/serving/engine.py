@@ -1,6 +1,6 @@
-"""The serving engine: one API over the exact, tiered and out-of-core
-backends, with a staged double-buffered batch pipeline (port of
-:mod:`repro.serving.engine`, without the distributed backend).
+"""The serving engine: one API over the exact, tiered, out-of-core and
+distributed backends, with a staged double-buffered batch pipeline (port of
+:mod:`repro.serving.engine`).
 
 * :class:`SearchEngine` wraps a backend behind ``search`` (one batch) and
   ``search_batches`` (a stream, double-buffered).
@@ -10,6 +10,10 @@ backends, with a staged double-buffered batch pipeline (port of
   are identical to the unpipelined path: the same programs on the same
   inputs, only the order of dispatch moves.
 * Fixed-beam serving runs one walk per batch.
+* Distributed: :class:`DistributedBackend` serves a sharded index through
+  :mod:`repro_torch.distributed.sharded_search`, staged (probe / hedged
+  continue) when adaptive, one monolithic step (``dispatch`` / ``collect``)
+  otherwise.
 * Disk slow tier: a :class:`TieredBackend` over a
   :class:`repro_torch.index.disk.BlockSlowTier` serves the rerank's fetch
   from the block store on the host, and the pipeline grows a third stage,
@@ -28,10 +32,11 @@ flight records an event after its device work; the gather waits on it
 before the host copies.  The dispatch stage (the pipeline's first, and
 the front door's ``begin``) waits for nothing on the device: the queries
 go up through pinned memory without blocking, every constant of the
-probe and grant is filled on the card, and the probe walk's convergence
+probe and grant is filled on the card, and the walk's convergence
 counter is read where the flight is first read on the host (the schedule
-stage, or a partial result), which raises as
-:func:`repro_torch.core.search.run_batch` does.  On the CPU the stages run
+stage, a partial result, or a fixed-beam or monolithic flight's
+collection), which raises as :func:`repro_torch.core.search.run_batch`
+does.  On the CPU the stages run
 synchronously and give the same arrays.
 
 ``coalesce_lanes=`` merges micro-batches below the threshold into one
@@ -57,6 +62,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core import calibrate as calib
 from repro_torch.core import search as search_mod
+from repro_torch.distributed import sharded_search as ss
 from repro_torch.index import disk as disk_mod
 from repro_torch.pq import PqCodebook
 from repro_torch.serving import pipeline as pipe
@@ -128,6 +134,7 @@ class _StagedRerankMixin:
     no promotion tick, nothing to close."""
 
     prefetches = False
+    staged = True
 
     def promotion_tick(self):
         return None
@@ -208,10 +215,10 @@ class ExactBackend(_StagedRerankMixin):
             sample=sample, seed=seed, base_cfg=base_cfg)
 
     def fixed(self, queries, *, beam_width: int, max_hops: int, k: int,
-              excl=None):
+              excl=None, active_count=None):
         ids, d2, stats = search_mod.beam_search_exact(
             self.x, self.adj, queries, self.entry, beam_width=beam_width,
-            max_hops=max_hops, k=k, excl=excl)
+            max_hops=max_hops, k=k, excl=excl, active_count=active_count)
         return ids, d2, stats, None
 
 
@@ -321,19 +328,20 @@ class TieredBackend(_StagedRerankMixin):
             base_cfg=base_cfg)
 
     def fixed(self, queries, *, beam_width: int, max_hops: int, k: int,
-              excl=None):
+              excl=None, active_count=None):
         if self.prefetches:
             # Walk un-reranked at full beam width, then rerank from the
             # block store (no later stage to hide this fetch behind).
             beam_ids, _beam_d, stats = disk_mod.search_tiered(
                 self.index, queries, beam_width=beam_width,
-                max_hops=max_hops, k=beam_width, rerank=False, excl=excl)
+                max_hops=max_hops, k=beam_width, rerank=False, excl=excl,
+                active_count=active_count)
             ids, d2 = disk_mod.rerank_with_slow_tier(self.slow_tier,
                                                      beam_ids, queries, k)
             return ids, d2, stats, None
         ids, d2, stats = disk_mod.search_tiered(
             self.index, queries, beam_width=beam_width, max_hops=max_hops,
-            k=k, rerank=self.do_rerank, excl=excl)
+            k=k, rerank=self.do_rerank, excl=excl, active_count=active_count)
         return ids, d2, stats, None
 
 
@@ -355,7 +363,8 @@ class OutOfCoreBackend(_StagedRerankMixin):
     ``io_depth`` of the continue's first-frontier rows are submitted to the
     tier's workers one stage before the continue (cache warm-up, never a
     change of result).  ``timings`` (None, or a dict) collects the walk's
-    host times (:func:`repro_torch.index.disk.ooc_walk`).
+    host times (:func:`repro_torch.index.disk.ooc_walk`, which adds each
+    walk's under a lock, so walks on several threads may share it).
     """
 
     prefetches = True        # the rerank's fetch is always a disk read here
@@ -452,7 +461,9 @@ class OutOfCoreBackend(_StagedRerankMixin):
         return self.slow_tier.promotion_tick()
 
     def fixed(self, queries, *, beam_width: int, max_hops: int, k: int,
-              excl=None):
+              excl=None, active_count=None):
+        """The out-of-core walk reads its frontier on the host every hop, so
+        it waits for the card anyway: ``active_count`` stays 0."""
         q = torch.as_tensor(queries, dtype=torch.float32, device=self.device)
         ctxs = disk_mod.codebook_luts(self.codebook, q)
         states = search_mod.ooc_init_pq(self.codes, ctxs, self.entry,
@@ -467,6 +478,176 @@ class OutOfCoreBackend(_StagedRerankMixin):
                                                  q, k)
         return ids, d2, search_mod.SearchStats(hops=state[4],
                                                dist_evals=state[5]), None
+
+
+class DistributedBackend:
+    """Sharded scatter-gather serving over a :class:`~repro_torch.distributed
+    .mesh.ShardMesh`: each shard walks its own sub-graph, with adaptive
+    budgets and bucket deadlines computed per shard (see
+    :mod:`repro_torch.distributed.sharded_search`).
+
+    Two execution shapes:
+
+    * built with ``beam_budget`` and driven by an engine holding the same
+      budget config, the backend is **staged**: the probe checkpoints every
+      shard's walk at the probe horizon and the continue resumes any query
+      subset and ends in the hedged merge, so ``search_batches`` overlaps
+      batch i+1's probe with batch i's host bucketing and continues.
+      Budgets are granted per (query, shard); the host schedules on their
+      per-query mean (:meth:`schedule_budgets`).
+    * without an engine-level budget config the whole step is one call
+      (``dispatch`` / ``collect``), the only shape that runs fixed-beam.
+
+    ``shard_laws=(lam (S,), l_min (S,))`` threads per-shard budget laws
+    through both shapes as runtime tensors.  ``arrays`` is the shard-major
+    dict of :func:`~repro_torch.distributed.sharded_search
+    .build_sharded_arrays` (or
+    :func:`repro_torch.index.convert.sharded_arrays_from_arrays`), moved to
+    the mesh's device.  There is no probe-horizon view of the walk on the
+    host (``partial_parts``), so an engine over this backend serves no
+    partial results, and filters are refused, as in the reference.
+    """
+
+    prefetches = False
+
+    def __init__(self, mesh, arrays: dict, *, beam_width: int, max_hops: int,
+                 k: int, query_chunk: int = 128, use_pq: bool = True,
+                 beam_budget=None, budget_buckets: int | None = None,
+                 shard_ok=None, shard_laws=None,
+                 merge: str = "hierarchical"):
+        self.mesh = mesh
+        self.device = mesh.device
+        n_shards = mesh.n_shards
+        self.arrays = {name: torch.as_tensor(a, device=self.device)
+                       for name, a in arrays.items()}
+        self.rows_per_shard = self.arrays["vectors"].shape[0] // n_shards
+        if "entries" not in self.arrays:
+            self.arrays["entries"] = ss.shard_medoids(self.arrays["vectors"],
+                                                      n_shards)
+        self.set_shard_ok(shard_ok if shard_ok is not None
+                          else np.ones((n_shards,), bool))
+        self.beam_budget = beam_budget
+        self.shard_laws = None
+        if shard_laws is not None:
+            self.shard_laws = (
+                torch.as_tensor(shard_laws[0], dtype=torch.float32,
+                                device=self.device),
+                torch.as_tensor(shard_laws[1], dtype=torch.int32,
+                                device=self.device))
+        per_shard = self.shard_laws is not None
+        # One more bucket costs one more continue over every shard (n_shards
+        # walks and the merge), so the scheduler's modelled launch cost
+        # scales with the shard count.
+        self.launch_cost_hops = pipe.BUCKET_LAUNCH_COST_HOPS * n_shards
+        self.step = ss.make_distributed_search(
+            mesh, beam_width=beam_width, max_hops=max_hops, k=k,
+            query_chunk=query_chunk, use_pq=use_pq, beam_budget=beam_budget,
+            budget_buckets=budget_buckets, merge=merge,
+            per_shard_laws=per_shard)
+        self._probe_step = self._continue_step = None
+        if beam_budget is not None:
+            self._probe_step = ss.make_distributed_probe(
+                mesh, budget_cfg=beam_budget, max_hops=max_hops,
+                query_chunk=query_chunk, use_pq=use_pq,
+                budget_buckets=budget_buckets, per_shard_laws=per_shard)
+            self._continue_step = ss.make_distributed_continue(
+                mesh, budget_cfg=beam_budget, k=k, use_pq=use_pq,
+                merge=merge)
+
+    @property
+    def staged(self) -> bool:
+        """Stageable iff the walk is adaptive (the probe horizon exists)."""
+        return self.beam_budget is not None
+
+    def set_shard_ok(self, shard_ok) -> None:
+        """Runtime straggler / fault mask, consumed at merge time: in a
+        pipelined stream it applies to every flight dispatched after the
+        call (a flight keeps the backend as it was at its dispatch)."""
+        self.shard_ok = torch.as_tensor(shard_ok, device=self.device).to(
+            torch.bool)
+
+    def _laws(self) -> tuple:
+        return self.shard_laws if self.shard_laws is not None else ()
+
+    def promotion_tick(self):
+        return None
+
+    def close(self) -> None:
+        pass
+
+    def finish_extras(self) -> dict[str, Any]:
+        return {}
+
+    # ------------------------------------------------- monolithic protocol
+
+    def dispatch(self, queries, active_count=None):
+        """The whole step for one batch; ``active_count`` takes every shard
+        walk's counter (nothing waits for the card)."""
+        a = self.arrays
+        q = torch.as_tensor(queries, dtype=torch.float32, device=self.device)
+        return self.step(a["adj"], a["codes"], a["vectors"], a["centroids"],
+                         q, self.shard_ok, a["entries"], *self._laws(),
+                         active_count=active_count)
+
+    def collect(self, handles) -> BatchResult:
+        d2, shard_ids, local_ids = handles
+        sid = shard_ids.cpu().numpy().astype(np.int64)
+        lid = local_ids.cpu().numpy().astype(np.int64)
+        return BatchResult(ids=sid * self.rows_per_shard + lid,
+                           d2=d2.cpu().numpy(),
+                           extras={"shard_ids": sid, "local_ids": lid})
+
+    # ----------------------------------------------------- staged protocol
+
+    def admit(self, queries) -> torch.Tensor:
+        return torch.as_tensor(queries, dtype=torch.float32,
+                               device=self.device)
+
+    def probe(self, ctxs, budget_cfg, excl=None, active_count=None):
+        if excl is not None:
+            raise NotImplementedError(
+                "filtered search is not supported on the distributed "
+                "backend: the filter words are indexed by global node id "
+                "while the shards walk with shard-local ids")
+        if budget_cfg != self.beam_budget:
+            raise ValueError(
+                "staged distributed serving needs the engine's budget_cfg "
+                f"to equal the backend's beam_budget; got {budget_cfg} vs "
+                f"{self.beam_budget}")
+        a = self.arrays
+        return self._probe_step(a["adj"], a["codes"], a["vectors"],
+                                a["centroids"], ctxs, a["entries"],
+                                *self._laws(), active_count=active_count)
+
+    def continue_fn(self, budget_cfg):
+        a = self.arrays
+
+        def cont(sub_state, sub_queries, sub_budgets, sub_hop_limits):
+            return self._continue_step(
+                a["adj"], a["codes"], a["vectors"], a["centroids"],
+                sub_state, sub_queries, sub_budgets, sub_hop_limits,
+                self.shard_ok)
+
+        return cont
+
+    def schedule_budgets(self, budgets_np: np.ndarray) -> np.ndarray:
+        """Per-query budget for host scheduling: the mean over shards (the
+        expected work a lane adds to each shard's continue).  The continue
+        always receives the raw per-shard grants."""
+        return np.rint(budgets_np.mean(axis=1)).astype(np.int32)
+
+    def finish(self, queries, parts, k: int, *, q_lid, budgets_np,
+               prefetch=None) -> BatchResult:
+        d2, shard_ids, local_ids, hops, evals = parts
+        sid = shard_ids.astype(np.int64)
+        lid = local_ids.astype(np.int64)
+        return BatchResult(
+            ids=sid * self.rows_per_shard + lid, d2=d2,
+            stats=search_mod.SearchStats(hops=hops, dist_evals=evals),
+            astats=search_mod.AdaptiveStats(
+                q_lid=torch.as_tensor(q_lid).cpu().numpy(),
+                budget=budgets_np),
+            extras={"shard_ids": sid, "local_ids": lid})
 
 
 @dataclasses.dataclass
@@ -484,13 +665,13 @@ class _InFlight:
     budgets: Any = None
     hop_limits: Any = None
     q_lid: Any = None
-    handles: Any = None        # fixed-beam mode: the walk's outputs
+    handles: Any = None        # fixed-beam / monolithic: the walk's outputs
     budgets_np: Any = None     # filled by the schedule stage
     ceilings: tuple[int, ...] | None = None
     dispatched: Any = None
     event: Any = None          # CUDA event after the flight's device work
     probe_event: Any = None    # CUDA event right after the probe and grant
-    active_count: Any = None   # the probe walk's counter, read on the host
+    active_count: Any = None   # the walks' counter, read on the host
     parts: Any = None          # prefetch stage: continue outputs, host numpy
     prefetch: Any = None       # prefetch stage: the slow tier's fetch future
     walk_prefetch: Any = None  # future of the first-frontier adjacency reads
@@ -716,6 +897,10 @@ class SearchEngine:
         Copied up without a host sync (:func:`_to_device`)."""
         if flt is None:
             return None
+        if not hasattr(self.backend, "num_nodes"):
+            raise NotImplementedError(
+                "filtered search is not supported on this backend (no "
+                "global node-id view; see DistributedBackend.probe)")
         n = self.backend.num_nodes()
         allowed = np.asarray(flt, dtype=bool)
         shared = allowed.ndim == 1 and allowed.shape == (n,)
@@ -727,11 +912,11 @@ class SearchEngine:
         return words.expand(nq, -1) if shared else words
 
     def _dispatch(self, queries, flt=None) -> _InFlight:
-        """Admission and probe (or the whole fixed-beam walk) on the
-        engine's stream, waiting for nothing on the card: the copies go up
-        through pinned memory, and the probe walk's counter is left for the
-        first host read of the flight (:meth:`_schedule`, or
-        :meth:`partial_result`)."""
+        """Admission and probe (or the whole fixed-beam walk, or a
+        monolithic backend's whole step) on the engine's stream, waiting for
+        nothing on the card: the copies go up through pinned memory, and
+        the walks' counter is left for the first host read of the flight
+        (:meth:`_schedule`, :meth:`partial_result` or :meth:`_collect`)."""
         backend = copy.copy(self.backend)
         queries = np.array(queries, dtype=np.float32)   # owned, writable
         with self._on_stream():
@@ -740,13 +925,17 @@ class SearchEngine:
                     torch.cuda.current_stream(backend.device))
             excl = self._pack_filter(flt, queries.shape[0])
             q = _to_device(queries, backend.device)
-            if not self._staged():
-                handles = backend.fixed(q, beam_width=self.beam_width,
-                                        max_hops=self.max_hops, k=self.k,
-                                        excl=excl)
-                return self._mark(_InFlight(queries=queries, backend=backend,
-                                            excl=excl, handles=handles))
             left = torch.zeros((1,), dtype=torch.int32, device=q.device)
+            if not self._staged():
+                if hasattr(backend, "dispatch"):     # filters refused above
+                    handles = backend.dispatch(q, active_count=left)
+                else:
+                    handles = backend.fixed(q, beam_width=self.beam_width,
+                                            max_hops=self.max_hops, k=self.k,
+                                            excl=excl, active_count=left)
+                return self._mark(_InFlight(queries=queries, backend=backend,
+                                            excl=excl, handles=handles,
+                                            active_count=left))
             ctxs = backend.admit(q)
             probe_state, budgets, hop_limits, q_lid = backend.probe(
                 ctxs, self.budget_cfg, excl=excl, active_count=left)
@@ -825,6 +1014,9 @@ class SearchEngine:
             f.event.synchronize()
         with self._on_stream():
             if not self._staged():
+                self._check_probe(f)
+                if hasattr(f.backend, "collect"):
+                    return f.backend.collect(f.handles)
                 ids, d2, stats, astats = f.handles
                 return BatchResult(ids=ids.cpu().numpy(),
                                    d2=d2.cpu().numpy(),
@@ -837,7 +1029,7 @@ class SearchEngine:
         return res
 
     def _staged(self) -> bool:
-        return self.budget_cfg is not None
+        return self.budget_cfg is not None and self.backend.staged
 
     def _prefetching(self) -> bool:
         """Whether the pipeline runs the disk prefetch stage."""
@@ -920,8 +1112,10 @@ class SearchEngine:
             # bucket is one more hop loop: one continue program is cheapest.
             if self.backend.device.type == "cuda":
                 return None
-            return pipe.auto_bucket_ceilings(budgets_np, cfg,
-                                             quantum=self.pad_quantum)
+            return pipe.auto_bucket_ceilings(
+                budgets_np, cfg, quantum=self.pad_quantum,
+                launch_cost_hops=getattr(self.backend, "launch_cost_hops",
+                                         pipe.BUCKET_LAUNCH_COST_HOPS))
         if self.num_buckets is None or self.num_buckets <= 1:
             return None
         return search_mod.budget_bucket_ceilings(cfg.l_min, cfg.l_max,

@@ -20,6 +20,9 @@ reference and against the port's in-memory walk.
   also runs on a machine without JAX (``pytest -m gpu --noconftest``).
 """
 import concurrent.futures as cf
+import sys
+import threading
+import time
 import types
 
 import numpy as np
@@ -317,6 +320,66 @@ def test_ooc_walk_timings_and_empty_batch(world):
         empty = tuple(a[:0] for a in st)
         assert tdisk.ooc_walk(port.codes, empty, luts[:0], BEAM, 64, BEAM,
                               tier) is empty
+    finally:
+        tier.close()
+
+
+def test_ooc_walk_timings_add_up_across_threads(world, monkeypatch):
+    """Two threads walk into one ``timings`` dict at once under a 1 us
+    switch interval; its sums equal those of the same walks run one after
+    the other.  A clock of each thread's own, one tick a read, makes every
+    walk's times exact, and the shared dict yields its thread between the
+    read and the write of an update, so a lost update shows."""
+    port = world["port"]
+    luts = tserving.TieredBackend(port, device="cpu").admit(world["q"])
+    n = port.codes.shape[0]
+    st = tsearch.ooc_init_pq(port.codes, luts, port.graph.entry, n, BEAM)
+    own = threading.local()
+
+    def tick():
+        own.t = getattr(own, "t", 0) + 1
+        return float(own.t)
+
+    monkeypatch.setattr(tdisk, "time", types.SimpleNamespace(
+        perf_counter=tick))
+    tier = _tier(world["store"])
+
+    def walks(timings, reps=4):
+        for _ in range(reps):
+            tdisk.ooc_walk(port.codes, st, luts, BEAM, 64, BEAM, tier, 2,
+                           timings=timings)
+
+    try:
+        alone: dict = {}
+        walks(alone)
+        walks(alone)
+        class Yielding(dict):
+            def get(self, key, default=None):
+                out = super().get(key, default)
+                time.sleep(1e-4)          # let the other thread run
+                return out
+
+        shared = Yielding()
+        errors: list = []
+
+        def run():
+            try:
+                walks(shared)
+            except Exception as e:      # reported below
+                errors.append(repr(e))
+
+        old = sys.getswitchinterval()
+        sys.setswitchinterval(1e-6)
+        try:
+            threads = [threading.Thread(target=run) for _ in range(2)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=120)
+        finally:
+            sys.setswitchinterval(old)
+        assert not any(t.is_alive() for t in threads) and not errors, errors
+        assert shared == alone and shared["walks"] == 8
     finally:
         tier.close()
 
