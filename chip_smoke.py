@@ -66,9 +66,11 @@ Phases, each printed on its own lines; any failure exits non-zero:
 3b. the calibration path — ``SearchEngine.recalibrate(joint=True)`` of the
    exact adaptive engine to the config's recall target 0.95 and of the
    tiered engine to 0.80 (PQ m=16 caps tiered recall near 0.835), each on
-   256 held-out queries, then the 10k stream served with each fitted law;
-   fails if the exact fit is not achieved, its served recall@10 falls below
-   0.92, or a ``beam_step`` kind was never launched;
+   256 held-out queries, then the 10k stream served with each fitted law,
+   and the config's lam-only fit (``calibrated_beam_budget``) of the exact
+   index on the same sample; fails if either exact fit is not achieved,
+   its served recall@10 falls below 0.92, or a ``beam_step`` kind was
+   never launched;
 3c. [adc] bulk ADC retrieval — ``adc_topk(k=10)`` of the 10,000 queries
    against phase 3's 1M x 16 PQ codes, in chunks of 256 queries (one
    ``pq_scan`` and one ``topk`` each); recall@10 against the exact ground
@@ -94,8 +96,11 @@ Phases, each printed on its own lines; any failure exits non-zero:
    150% of the replay's capacity for 2 s of arrivals (overload: must
    shed), whose ok + partial lanes a second give the wall-clock door's
    capacity; Poisson (must not shed) and bursty, 10 s each at half of
-   that; interactive requests in groups of 8 with the deadline between a
-   dispatch's probe and full result (hedges must fire); and 12 held
+   that; interactive requests in groups of 8 at a quarter of it, first
+   for 3 s under the class's 100 ms deadline (calibration: each lane's
+   submit-to-probe-ready and submit-to-full times under this load), then
+   for 5 s with the deadline halfway between those two medians (hedges
+   must fire); and 12 held
    dispatches of 8 from one client, each continue held back by a sleep
    kernel queued on the engine's stream right after ``begin``, past a
    20 ms deadline (each partial asked during the hold must return before
@@ -202,6 +207,42 @@ Phases, each printed on its own lines; any failure exits non-zero:
    stream ms a batch (CUDA events around it, the host's launch gaps
    included) and one merge's device ms (queued behind a sleep kernel), each
    shard's fitted law and the fit's seconds;
+3i. [base] the paper's two baselines on phase 3's rows: IVF-Flat over
+   all 1M (``build_ivf``: nlist = N / 256 = 3,906, 6 k-means iterations,
+   as ``benchmarks/recall_qps.py`` builds it), searched by the stream's
+   first 1,000 queries (a cut for time: the padded layout scans nprobe x
+   max_len rows a query) at nprobe 1, 2, 4, 8, 16 and 32 (the probe and
+   the in-list select on ``topk``); HNSW built on the host over the first
+   4,096 rows (m = 16, ef_construction = 100; the build is sequential
+   Python, so 1M would take hours) and searched by all 10,000 queries
+   against their ground truth over those rows at ef 16, 32, 64 and 96
+   (the descent batched in torch, layer 0 one ``beam_step`` exact walk
+   from each query's own entry).  Prints the build seconds, max_len and
+   ``n_layers``, and per setting recall@10, QPS, mean points scanned and
+   the valid share of the padded scan (IVF), mean hops and evaluations and
+   the descent's host reads (HNSW).  Fails unless IVF recall never falls
+   as nprobe grows and is >= 0.50 at 32, HNSW recall@10 at ef 96 is >=
+   0.90, ``topk`` and ``beam_step`` exact launched on the path, one chunk
+   of 256 queries at nprobe 8 gives the same ids, d2 and points scanned
+   bit for bit with ``topk_ref`` as the select, and 256 queries' layer-0
+   walks agree with ``beam_step_ref`` on the card (float rows hop by hop:
+   d within 1e-5 relative, ids and visited words equal outside
+   near-ties; an integer-valued copy of the rows: the whole walk bit for
+   bit);
+3j. [metric] the inner-product and cosine scans: ``brute_force_topk``
+   (k = 10) of 1,000 queries over T2I's shape (ip, D = 200, N = 1M, cut
+   from 1B) and GloVe-100's (cosine, D = 100, N = 1.2M), each product a
+   float32 matmul and each select the ``topk`` kernel on negative
+   values; prints each scan's ms.  Fails unless ``topk`` launched, 64
+   queries of each agree with a float64 scan on the card (distances
+   within 1e-4 of the row's scale, ids equal outside near-ties), and
+   ``topk`` on negated integer products at the scan's chunk shape (ties,
+   a row of -0.0, a row of both zeros) equals ``topk_ref`` bit for bit at
+   k = 10, 100 and 300;
+3k. [examples] ``examples/torch_quickstart.py``'s ``main`` on the card in
+   this process (tiny-mixture, MCGI and Vamana), its launch counts
+   printed; fails unless ``beam_step`` exact, ``l2_distance``, ``topk``
+   and ``lid_estimate`` launched;
 4. the LM paths, with the MCGI world freed — qwen2-7b at full width
    (``repro_torch/configs/qwen2_7b.py``: 28 layers, d_model 3584, 28 query
    and 4 KV heads, d_ff 18944, vocab 152064, QKV bias), weights drawn from
@@ -1537,6 +1578,7 @@ def calibration_path(world) -> dict:
                                  world["batches"], world["gts"], n,
                                  name == "tiered")
         served[name]["target"] = target
+    lam_only_fit(world)
     counts = ops.launch_counts()
     log(f"[calibrate] kernel launches on the calibration path: {counts}")
     for kind in ("exact", "pq"):
@@ -1549,6 +1591,32 @@ def calibration_path(world) -> dict:
                              f"recall@10 {served['exact']['recall']:.4f} < "
                              f"{floor:.2f}")
     return counts
+
+
+def lam_only_fit(world) -> None:
+    """The dataset config's lam-only fit
+    (``McgiDatasetConfig.calibrated_beam_budget``) of the exact index to
+    its recall target on ``CALIB_SAMPLE`` held-out queries; fails unless
+    the fitted law reaches the target on that sample."""
+    from repro_torch.core import calibrate
+
+    cfg, ex = sift1m(), world["exact"]
+    ev = calibrate.exact_recall_eval(ex.x, ex.adj, ex.entry, world["qn"],
+                                     world["gt"], k=cfg.k,
+                                     sample=CALIB_SAMPLE,
+                                     base_cfg=cfg.beam_budget())
+    t0 = time.perf_counter()
+    fit = cfg.calibrated_beam_budget(ev)
+    secs = time.perf_counter() - t0
+    rec = ev(fit)
+    ok = rec >= cfg.recall_target
+    log(f"[calibrate] exact, lam only (calibrated_beam_budget): target "
+        f"{cfg.recall_target:.2f} {'achieved' if ok else 'MISSED'}: "
+        f"lam={fit.lam:.4f} l_min={fit.l_min} hop_factor={fit.hop_factor} "
+        f"recall={rec:.4f} on {CALIB_SAMPLE} held-out queries, {secs:.2f}s")
+    if not ok:
+        raise AssertionError(f"the exact lam-only fit missed its target "
+                             f"{cfg.recall_target}")
 
 
 # --------------------------------------------------------------- phase 3c
@@ -1649,6 +1717,7 @@ DOOR_REPLAY_QPS = 10_000           # its arrival rate: dispatches fill up
 DOOR_SECONDS = 10.0                # arrivals of each wall-clock run
 DOOR_OVERLOAD_SECONDS = 2.0        # arrivals of the overload run
 DOOR_SHORT_SECONDS = 5.0           # length of the short-deadline run
+DOOR_CALIB_SECONDS = 3.0           # its calibration segment, same load
 DOOR_HELD_GROUPS = 12              # held-continue run: dispatches of 8,
 DOOR_HELD_GAP = 0.3                # s apart, each continue held back by a
 DOOR_HOLD_CYCLES = 300_000_000     # sleep kernel (~150-170 ms of the card)
@@ -1692,9 +1761,10 @@ class LateClock:
 
 class FlightLog:
     """The dispatcher seam over another dispatcher that records, for every
-    dispatch, the clock time its full result reached the door (the
-    completion callback's entry; the production dispatcher has put the
-    result on the dispatch by then) and the host seconds of its
+    dispatch, the clock time its ``begin`` handed it over (from then on a
+    hedge can take its probe), the clock time its full result reached the
+    door (the completion callback's entry; the production dispatcher has
+    put the result on the dispatch by then) and the host seconds of its
     ``finish_from``.  ``launch`` goes to the inner dispatcher, so ``begin``
     runs where it would without the log.  ``hold(disp)``, if given, runs
     right after the dispatch's ``begin``, before its ``finish_from`` is
@@ -1703,6 +1773,7 @@ class FlightLog:
     def __init__(self, inner, clock, hold=None):
         self.inner, self.clock, self.hold = inner, clock, hold
         self.sent = []                      # every dispatch submitted
+        self.begun = {}                     # id(dispatch) -> clock time
         self.flights = []                   # (dispatch, t_full, seconds)
 
     def launch(self, fly):
@@ -1719,6 +1790,9 @@ class FlightLog:
             time.sleep(0.001)
 
     def submit(self, disp, finish, on_done):
+        # Its begin has returned: from now on a deadline hedge can take the
+        # probe (the production dispatcher marks it ready here).
+        self.begun[id(disp)] = self.clock.now()
         self.sent.append(disp)
         if self.hold is not None:
             self.hold(disp)
@@ -2019,6 +2093,13 @@ def door_run(run, world, laws, card, arrivals, rows, cls_of, offered,
     m = door_report(run, door, futs, logs, flights.flights, clock, secs,
                     offered, world, card, "the begin thread")
     m["warm"] = warm
+    # Each dispatched lane: seconds from its submit to its dispatch's hand-
+    # over (a hedge can take the probe from then on) and to its full result.
+    m["lanes"] = []
+    for d, t_full, _ in flights.flights:
+        for r in d.requests:
+            t_arr = r.future.result(timeout=0).t_arrival
+            m["lanes"].append((flights.begun[id(d)] - t_arr, t_full - t_arr))
     w = [x for ws in waits for x in ws]
     log(f"[door] {run}: a submit held its client p50 {pct_ms(w, 50):.3f} "
         f"ms p99 {pct_ms(w, 99):.3f} ms ({clients} client threads; the "
@@ -2118,32 +2199,29 @@ def door_replay(world, laws, card, arrivals, rows, cls_of):
     return m, cap
 
 
-def door_solo(world, laws, rng) -> float:
-    """The short deadline: interactive dispatches timed alone (probe
-    ready, full result), the deadline between the two medians."""
+def door_calibrate(world, laws, card, rng, rate: float) -> float:
+    """The short deadline, from the gated run's own load: interactive
+    requests in groups of 8 at ``rate``, from the same client threads, for
+    ``DOOR_CALIB_SECONDS`` under the class's own deadline; the deadline
+    lies halfway between the medians of a lane's submit-to-probe-ready
+    (its dispatch handed over after ``begin``) and submit-to-full times."""
     import statistics
 
-    from repro_torch import serving
-
-    qn = world["qn"]
-    eng = serving.SearchEngine(world["tiered"], laws["interactive"], k=10)
-    lanes = DOOR_CLASSES["interactive"][0]
-    t_probe, t_full = [], []
-    for i in range(20):
-        b = qn[rng.integers(0, qn.shape[0], size=lanes)]
-        t0 = time.perf_counter()
-        f = eng.begin(b)
-        if f.probe_event is not None:
-            f.probe_event.synchronize()
-        t_probe.append(time.perf_counter() - t0)
-        eng.finish_from(f)
-        t_full.append(time.perf_counter() - t0)
-    p, full = statistics.median(t_probe), statistics.median(t_full)
+    m = door_groups("short-deadline calibration", world, laws, card, rng,
+                    rate, DOOR_CALIB_SECONDS, "poisson",
+                    DOOR_CLASSES["interactive"][2])
+    p = statistics.median(a for a, _ in m["lanes"])
+    full = statistics.median(b for _, b in m["lanes"])
     deadline = p + 0.5 * (full - p)
-    log(f"[door] an interactive dispatch alone: probe ready after "
-        f"{p * 1e3:.3f} ms, full result after {full * 1e3:.3f} ms (medians "
-        f"of 20, not counted on the path); short deadline "
-        f"{deadline * 1e3:.3f} ms")
+    log(f"[door] short-deadline calibration: {len(m['lanes'])} lanes at "
+        f"{rate:.1f} requests/s ({DOOR_CLIENTS} client threads, groups of "
+        f"{DOOR_CLASSES['interactive'][0]}); submit to probe ready p50 "
+        f"{p * 1e3:.3f} ms, to the full result p50 {full * 1e3:.3f} ms; "
+        f"short deadline {deadline * 1e3:.3f} ms")
+    if not p < deadline < full:
+        raise AssertionError(f"[door] no deadline between probe ready "
+                             f"({p * 1e3:.3f} ms) and full "
+                             f"({full * 1e3:.3f} ms)")
     return deadline
 
 
@@ -2195,7 +2273,9 @@ def door_path(world, card: str, seed: int) -> dict:
     shed; ``DOOR_OVERLOAD_SECONDS`` of arrivals, which the door takes
     several times as long to absorb), whose served lanes a second measure
     the wall-clock door's capacity; Poisson and bursty at 50% of that (no
-    shed at Poisson); a short-deadline run whose hedges fire; and held
+    shed at Poisson); a short-deadline run whose hedges fire, its
+    deadline from a calibration segment at the same load
+    (:func:`door_calibrate`); and held
     flights, whose continue a sleep kernel holds back past their
     deadline, so that each partial must return before the continue can.
     Returns the launch counts of the door's runs alone."""
@@ -2211,7 +2291,6 @@ def door_path(world, card: str, seed: int) -> dict:
     cls_of = rng.permutation(np.repeat(list(DOOR_CLASSES), DOOR_REPLAY // 2))
     arrivals = arrival_times(rng, DOOR_REPLAY, DOOR_REPLAY_QPS, "poisson")
     world["door_direct"] = door_direct(world, laws)
-    short_deadline = door_solo(world, laws, rng)
 
     ops.reset_launch_counts()
     replay, cap = door_replay(world, laws, card, arrivals, rows, cls_of)
@@ -2232,6 +2311,7 @@ def door_path(world, card: str, seed: int) -> dict:
                                        0.5 * wall)
     runs["bursty 50%"] = door_poisson("bursty 50%", world, laws, card, rng,
                                       0.5 * wall, "bursty")
+    short_deadline = door_calibrate(world, laws, card, rng, 0.25 * wall)
     runs["short deadline"] = short = door_groups(
         "short deadline", world, laws, card, rng, 0.25 * wall,
         DOOR_SHORT_SECONDS, "poisson", short_deadline)
@@ -3295,6 +3375,371 @@ def dist_path(world, card: str, seed: int) -> dict:
     return counts
 
 
+# ------------------------------------------------------- phase 3i: [base]
+
+IVF_LIST_SIZE = 256         # nlist = n // 256 (benchmarks/recall_qps.py:95)
+IVF_ITERS = 6
+IVF_QUERIES = 1000          # the stream's first 1,000 (time: padded scans)
+NPROBE_SWEEP = (1, 2, 4, 8, 16, 32)      # recall_qps.py:26
+IVF_RECALL_FLOOR = 0.50     # at nprobe 32
+IVF_CHECK_Q, IVF_CHECK_NPROBE = 256, 8
+HNSW_ROWS = 4096            # the host build is sequential Python (time)
+HNSW_M, HNSW_EF_CONSTRUCTION = 16, 100   # recall_qps.py:106
+EF_SWEEP = (16, 32, 64, 96)
+HNSW_RECALL_FLOOR = 0.90    # at ef 96 (tests/test_build_search.py:95-102)
+HNSW_CHECK_Q = 256
+
+
+def timed_sync(dev, fn):
+    """(result, host seconds) of ``fn()`` between two synchronises."""
+    sync(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    sync(dev)
+    return out, time.perf_counter() - t0
+
+
+def ivf_sweep(index, x, q, gt, card: str) -> dict:
+    """Search the IVF index at every nprobe of ``NPROBE_SWEEP``; prints and
+    returns each one's recall@10."""
+    import torch
+
+    from repro_torch.core import distance, ivf
+
+    dev = x.device
+    max_len = index.lists.shape[1]
+    gt_t = torch.as_tensor(gt, device=dev)
+    ivf.search_ivf(index, x, q[:8], nprobe=1)                # warm-up
+    recalls = {}
+    for nprobe in NPROBE_SWEEP:
+        (ids, _, scanned), secs = timed_sync(
+            dev, lambda: ivf.search_ivf(index, x, q, nprobe=nprobe, k=10))
+        rec = recalls[nprobe] = float(distance.recall_at_k(ids, gt_t))
+        mean = float(scanned.float().mean())
+        log(f"[base] ivf nprobe={nprobe}: recall@10 {rec:.4f}, QPS "
+            f"{q.shape[0] / secs:.1f} ({secs * 1e3:.1f} ms for "
+            f"{q.shape[0]} queries), mean scanned {mean:.1f}, valid share "
+            f"of the padded scan {mean / (nprobe * max_len):.4f} ({card})")
+    return recalls
+
+
+def check_ivf_select(index, x, q) -> None:
+    """One chunk at nprobe 8: the path's select (the ``topk`` kernel)
+    against the same search with ``topk_ref`` as its select, on the card:
+    ids, d2 and points scanned bit for bit."""
+    import types
+
+    import torch
+
+    from repro_torch.core import ivf
+    from repro_torch.kernels import ref
+
+    got = ivf.search_ivf(index, x, q, nprobe=IVF_CHECK_NPROBE, k=10)
+    kernel_ops = ivf.ops
+    ivf.ops = types.SimpleNamespace(topk=ref.topk_ref)
+    try:
+        want = ivf.search_ivf(index, x, q, nprobe=IVF_CHECK_NPROBE, k=10)
+    finally:
+        ivf.ops = kernel_ops
+    for name, a, b in zip(("ids", "d2", "scanned"), got, want):
+        if not torch.equal(a, b):
+            raise AssertionError(f"[base] ivf: {name} with the topk kernel "
+                                 f"differ from topk_ref's on the card")
+    log(f"[base] ivf select: {q.shape[0]} queries at nprobe "
+        f"{IVF_CHECK_NPROBE}, ids, d2 and scanned with the topk kernel "
+        f"bit-identical to topk_ref's on the card")
+
+
+def check_hnsw_walk(h, xh, q) -> None:
+    """Layer 0's walk from each query's own entry (the descent's), ef 96:
+    on float rows hop by hop against ``beam_step_ref`` from the same state
+    (d within 1e-5 relative, ids and visited words equal outside
+    near-ties); on an integer-valued copy of the rows the whole walk, one
+    launch, bit for bit."""
+    import torch
+
+    from repro_torch.core import hnsw, search
+    from repro_torch.kernels import ops, ref
+
+    ef, dev = EF_SWEEP[-1], xh.device
+    entries = hnsw.descend(h, xh, q)
+    adj = h.layers[0]
+    n, nq = xh.shape[0], q.shape[0]
+    b, hl = search._lane_vectors(nq, ef, 4 * ef, None, dev)
+    # Float rows, one hop at a time.
+    st = search._init_state(q, entries, search._exact_eval(xh), n, ef)
+    hops = tie_lanes = 0
+    max_err = 0.0
+    while bool(ref.lane_active(st[0], st[2], st[4], b, hl).any()):
+        a = ops.beam_step(clone(st), q, adj, xh, b, hl, kind="exact")
+        w = ref.beam_step_ref(st, q, adj, xh, b, hl, kind="exact")
+        same = (a[0] == w[0]).all(1) & (a[3] == w[3]).all(1)
+        tie = near_tie(st[1], FLOAT_RTOL) | near_tie(w[1], FLOAT_RTOL)
+        if bool((~same & ~tie).any()):
+            raise AssertionError(f"[base] hnsw walk hop {hops}: ids or "
+                                 f"visited differ in a lane without a tie")
+        fin = torch.isfinite(w[1]) & same[:, None]
+        err = (a[1] - w[1]).abs()[fin]
+        if err.numel():
+            if not bool((err <= FLOAT_RTOL * w[1].abs()[fin]).all()):
+                raise AssertionError(f"[base] hnsw walk hop {hops}: beam_d "
+                                     f"beyond rtol {FLOAT_RTOL}")
+            max_err = max(max_err, float(err.max()))
+        tie_lanes += int((~same).sum())
+        st, hops = w, hops + 1
+    # Integer-valued rows, the whole walk in one launch.
+    xi, qi = torch.round(xh * 2.0), torch.round(q * 2.0)
+    st0 = search._init_state(qi, entries, search._exact_eval(xi), n, ef)
+    got = ops.beam_walk(clone(st0), qi, adj, xi, b, hl, kind="exact",
+                        max_hops=ops.MAX_HOPS)
+    want, _ = ref.beam_walk_ref(st0, qi, adj, xi, b, hl, kind="exact",
+                                max_hops=ops.MAX_HOPS)
+    for name, a, w in zip(("ids", "d", "exp", "visited", "hops", "evals"),
+                          got, want):
+        if not torch.equal(a, w):
+            raise AssertionError(f"[base] hnsw walk: {name} differs from "
+                                 f"beam_walk_ref's on integer rows")
+    log(f"[base] hnsw layer-0 walk: {nq} queries from their own entries at "
+        f"ef {ef}: float rows {hops} hops against beam_step_ref, beam_d "
+        f"within rtol {FLOAT_RTOL} (max abs err {max_err:.3g}), "
+        f"{tie_lanes} lane-hops differ, each at a near-tie; integer rows "
+        f"bit-identical to beam_walk_ref in one launch (hops "
+        f"{int(want[4].sum())})")
+
+
+def base_path(world, card: str, seed: int) -> dict:
+    """[base]: the paper's two baselines on phase 3's rows.  IVF-Flat over
+    all N (nlist = N / 256, 6 k-means iterations) searched by the stream's
+    first ``IVF_QUERIES`` at every nprobe of ``NPROBE_SWEEP``; HNSW built
+    on the host over the first ``HNSW_ROWS`` rows (m = 16,
+    ef_construction = 100) and searched by the whole stream at every ef of
+    ``EF_SWEEP``.  Fails unless IVF recall never falls as nprobe grows and
+    reaches ``IVF_RECALL_FLOOR`` at 32, HNSW recall@10 at ef 96 reaches
+    ``HNSW_RECALL_FLOOR``, ``topk`` and ``beam_step`` exact launched on
+    the path, and the kernel-against-plain checks hold (after the counts
+    are read).  Returns the launch counts of this run."""
+    import torch
+
+    from repro_torch.core import distance, hnsw, ivf
+    from repro_torch.kernels import ops
+
+    t_phase = time.perf_counter()
+    x = world["exact"].x
+    dev, n = x.device, x.shape[0]
+    q_all = torch.as_tensor(world["qn"], device=dev)
+    q_ivf, gt_ivf = q_all[:IVF_QUERIES], world["gt"][:IVF_QUERIES]
+    xh = x[:min(HNSW_ROWS, n)]
+    if xh.shape[0] < HNSW_ROWS or n < sift1m().n:
+        log(f"[base] cut: IVF over N={n}, HNSW over {xh.shape[0]} rows")
+    _, gt_h = distance.brute_force_topk(q_all, xh, k=10)  # not counted
+
+    ops.reset_launch_counts()
+    nlist = max(1, n // IVF_LIST_SIZE)
+    index, secs = timed_sync(dev, lambda: ivf.build_ivf(
+        x, nlist=nlist, iters=IVF_ITERS, seed=seed, device=dev))
+    lens = index.list_len.float()
+    log(f"[base] ivf build: nlist={nlist} iters={IVF_ITERS} over N={n} in "
+        f"{secs:.2f} s; list length mean {float(lens.mean()):.1f} max "
+        f"{index.lists.shape[1]} (max_len; the padded scan reads nprobe x "
+        f"max_len rows a query)")
+    recalls = ivf_sweep(index, x, q_ivf, gt_ivf, card)
+
+    t0 = time.perf_counter()
+    h = hnsw.build_hnsw(xh, m=HNSW_M, ef_construction=HNSW_EF_CONSTRUCTION,
+                        seed=seed, device=dev)
+    secs = time.perf_counter() - t0
+    log(f"[base] hnsw build (host, sequential): {xh.shape[0]} rows, m="
+        f"{HNSW_M} ef_construction={HNSW_EF_CONSTRUCTION} in {secs:.1f} s "
+        f"({secs / xh.shape[0] * 1e3:.2f} ms an insertion); n_layers "
+        f"{h.n_layers}")
+    gt_h_t = gt_h.to(dev)
+    hnsw.search_hnsw(h, xh, q_all[:8], ef=EF_SWEEP[0])       # warm-up
+    h_recall = {}
+    for ef in EF_SWEEP:
+        counter = {}
+        (ids, _, stats), secs = timed_sync(dev, lambda: hnsw.search_hnsw(
+            h, xh, q_all, ef=ef, k=10, counter=counter))
+        rec = h_recall[ef] = float(distance.recall_at_k(ids, gt_h_t))
+        log(f"[base] hnsw ef={ef}: recall@10 {rec:.4f}, QPS "
+            f"{q_all.shape[0] / secs:.1f} ({secs * 1e3:.1f} ms for "
+            f"{q_all.shape[0]} queries), mean hops "
+            f"{float(stats.hops.float().mean()):.2f} evaluations "
+            f"{float(stats.dist_evals.float().mean()):.2f}; the descent "
+            f"read its flag on the host {counter.get('reads', 0)} times "
+            f"({card})")
+    counts = ops.launch_counts()
+    log(f"[base] kernel launches on the path: "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    order = [recalls[p] for p in NPROBE_SWEEP]
+    if any(b < a for a, b in zip(order, order[1:])):
+        raise AssertionError(f"[base] ivf recall fell as nprobe grew: "
+                             f"{recalls}")
+    if recalls[NPROBE_SWEEP[-1]] < IVF_RECALL_FLOOR:
+        raise AssertionError(f"[base] ivf recall@10 at nprobe "
+                             f"{NPROBE_SWEEP[-1]} below {IVF_RECALL_FLOOR}")
+    if h_recall[EF_SWEEP[-1]] < HNSW_RECALL_FLOOR:
+        raise AssertionError(f"[base] hnsw recall@10 at ef {EF_SWEEP[-1]} "
+                             f"below {HNSW_RECALL_FLOOR}")
+    for name in ("topk", "beam_step.exact"):
+        if counts[name] == 0:
+            raise AssertionError(f"[base] {name} was never launched")
+    check_ivf_select(index, x, q_ivf[:IVF_CHECK_Q])
+    check_hnsw_walk(h, xh, q_all[:HNSW_CHECK_Q])
+    log(f"[base] phase {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
+# ----------------------------------------------------- phase 3j: [metric]
+
+METRIC_QUERIES = 1000
+METRIC_CHECK_Q = 64
+METRIC_RTOL = 1e-4
+# (metric, dataset of the port's registry, N): T2I-1B's D = 200 (inner
+# product) cut from 1B to 1M; GloVe-100's D = 100 (angular) at its 1.2M.
+METRIC_CELLS = (("ip", "t2i-proxy", 1_000_000),
+                ("cosine", "glove-proxy", 1_200_000))
+METRIC_TOPK_K = (10, 100, 300)
+
+
+def check_metric_scan(metric, q, x, d, ids) -> tuple[float, int]:
+    """The first ``METRIC_CHECK_Q`` queries against a float64 scan on the
+    card: distances within ``METRIC_RTOL`` of the row's largest magnitude
+    among its k, ids equal except at near-ties (the two ids' float64
+    distances within ``METRIC_RTOL`` of each other).  Returns (max
+    relative error, ids that differ at a near-tie)."""
+    import torch
+
+    q64, x64 = q.double(), x.double()
+    if metric == "cosine":
+        q64 = q64 / (torch.linalg.norm(q64, dim=1, keepdim=True) + 1e-12)
+        x64 = x64 / (torch.linalg.norm(x64, dim=1, keepdim=True) + 1e-12)
+    dd = -(q64 @ x64.T)
+    want_d, want_i = torch.topk(dd, d.shape[1], dim=1, largest=False)
+    scale = want_d.abs().amax(1, keepdim=True).clamp_min(1e-30)
+    err = float(((d.double() - want_d).abs() / scale).max())
+    if err > METRIC_RTOL:
+        raise AssertionError(f"[metric] {metric}: distances {err:.3g} from "
+                             f"float64, beyond {METRIC_RTOL}")
+    diff = ids.long() != want_i
+    a = torch.gather(dd, 1, ids.long())
+    b = torch.gather(dd, 1, want_i)
+    tie = (a - b).abs() <= METRIC_RTOL * torch.maximum(a.abs(), b.abs())
+    if bool((diff & ~tie).any()):
+        raise AssertionError(f"[metric] {metric}: ids differ from float64's "
+                             f"away from a near-tie")
+    return err, int(diff.sum())
+
+
+def check_topk_integer(dev, seed: int) -> None:
+    """The ``topk`` kernel on negated integer inner products at the scan's
+    chunk shape (1,000 x 65,536): ties everywhere, a row of -0.0 only and
+    a row of +0.0 and -0.0 in turn; values bitwise and ids equal to
+    ``topk_ref`` on the card at each k of ``METRIC_TOPK_K``."""
+    import torch
+
+    from repro_torch.core import distance
+    from repro_torch.kernels import ops, ref
+
+    g = torch.Generator(device=dev).manual_seed(seed + 31)
+    q = torch.randint(-3, 4, (METRIC_QUERIES, 200), generator=g,
+                      device=dev).float()
+    x = torch.randint(-3, 4, (65536, 200), generator=g, device=dev).float()
+    q[0] = 0.0
+    d = distance.neg_inner_product(q, x).contiguous()
+    d[1, 0::2] = 0.0
+    d[1, 1::2] = -0.0
+    zeros = d[1] == 0
+    if not (bool(torch.signbit(d[0]).all())
+            and bool((zeros & torch.signbit(d[1])).any())
+            and bool((zeros & ~torch.signbit(d[1])).any())):
+        raise AssertionError("[metric] the integer rows lack their zeros")
+    for k in METRIC_TOPK_K:
+        got_v, got_i = ops.topk(d, k)
+        want_v, want_i = ref.topk_ref(d, k)
+        if not (torch.equal(got_i, want_i) and torch.equal(
+                got_v.view(torch.int32), want_v.view(torch.int32))):
+            raise AssertionError(f"[metric] topk k={k} on negated integer "
+                                 f"products differs from topk_ref")
+    log(f"[metric] topk on negated integer products ({METRIC_QUERIES} x "
+        f"65536, ties, a row of -0.0, a row of +0.0 and -0.0): values "
+        f"bitwise and ids equal to topk_ref at k = {METRIC_TOPK_K}")
+
+
+def metric_path(dev, seed: int, card: str) -> dict:
+    """[metric]: the inner-product and cosine scans —
+    ``brute_force_topk(k=10)`` of ``METRIC_QUERIES`` queries over T2I's
+    shape (ip) and GloVe's (cosine) on the card (the product a matmul,
+    the select the ``topk`` kernel on negative values).  Fails unless
+    ``topk`` launched, 64 queries of each agree with float64 and the
+    integer check holds.  Returns the launch counts of this run."""
+    from repro_torch.core import distance
+    from repro_torch.data import REGISTRY, make_dataset
+    from repro_torch.kernels import ops
+
+    t_phase = time.perf_counter()
+    data = {}
+    for metric, name, n in METRIC_CELLS:
+        x, q = make_dataset(REGISTRY[name], seed=seed + 30, device=dev, n=n)
+        data[metric] = (x, q[:METRIC_QUERIES])
+        distance.brute_force_topk(q[:8], x, 10, metric=metric)  # warm-up
+    ops.reset_launch_counts()
+    results = {}
+    for metric, name, n in METRIC_CELLS:
+        x, q = data[metric]
+        results[metric], secs = timed_sync(
+            dev, lambda: distance.brute_force_topk(q, x, 10, metric=metric))
+        log(f"[metric] {metric} over {name} at N={x.shape[0]} D="
+            f"{x.shape[1]}: {q.shape[0]} queries, k=10 in {secs * 1e3:.1f} "
+            f"ms ({card})")
+    counts = ops.launch_counts()
+    log(f"[metric] kernel launches on the path: "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    if counts["topk"] == 0:
+        raise AssertionError("[metric] topk was never launched")
+    for metric, _, _ in METRIC_CELLS:
+        x, q = data[metric]
+        d, ids = results[metric]
+        err, ties = check_metric_scan(metric, q[:METRIC_CHECK_Q], x,
+                                      d[:METRIC_CHECK_Q],
+                                      ids[:METRIC_CHECK_Q])
+        log(f"[metric] {metric}: {METRIC_CHECK_Q} queries against float64 "
+            f"on the card: distances within {err:.3g} of each row's scale, "
+            f"{ties} ids differ, each at a near-tie")
+    check_topk_integer(dev, seed)
+    log(f"[metric] phase {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
+# --------------------------------------------------- phase 3k: [examples]
+
+def examples_path() -> dict:
+    """[examples]: ``examples/torch_quickstart.py``'s ``main`` on the card,
+    in this process.  Fails unless its walks launched ``beam_step`` exact
+    and its ground truth and LID ``l2_distance``, ``topk`` and
+    ``lid_estimate``.  Returns the launch counts of this run."""
+    import importlib.util
+
+    from repro_torch.kernels import ops
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_quickstart", os.path.join(ROOT, "examples",
+                                         "torch_quickstart.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = mod.main(["--device", "cuda"])
+    secs = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    log(f"[examples] torch_quickstart on the card in {secs:.1f} s: "
+        f"{ {k: round(v, 4) for k, v in out.items()} }; kernel launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    for name in ("beam_step.exact", "l2_distance", "topk", "lid_estimate"):
+        if counts[name] == 0:
+            raise AssertionError(f"[examples] {name} was never launched")
+    return counts
+
+
 def recall_of(results, gts) -> float:
     import numpy as np
     import torch
@@ -3637,7 +4082,12 @@ def main(argv=None) -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     paths["dist"] = dist_path(world, card, args.seed)
+    paths["base"] = base_path(world, card, args.seed)
     del world
+    torch.cuda.empty_cache()
+    paths["metric"] = metric_path(dev, args.seed, card)
+    torch.cuda.empty_cache()
+    paths["examples"] = examples_path()
     torch.cuda.empty_cache()
     lm_counts, attn_err = lm_paths(dev, args.seed)
     paths.update(lm_counts)

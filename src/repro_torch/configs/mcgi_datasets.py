@@ -55,6 +55,15 @@ class McgiDatasetConfig:
             lam=self.lam, probe_hops=self.probe_hops,
             hop_factor=self.hop_factor)
 
+    def calibrated_beam_budget(self, eval_recall) -> AdaptiveBeamBudget:
+        """Re-fit lam alone against this dataset's recall target
+        (``eval_recall`` measures one candidate law on held-out queries:
+        :func:`repro_torch.core.calibrate.exact_recall_eval` or
+        ``tiered_recall_eval``); the stored ``lam`` is the seed."""
+        base = self.beam_budget()
+        return calibrate_mod.calibrate_budget_law(
+            eval_recall, base, self.recall_target).budget_cfg(base)
+
     def shard_budget_laws(self, n_shards: int):
         """Per-shard (lam (S,) float32, l_min (S,) int32) arrays for the
         distributed step.  Stored per-shard fits must have ``n_shards``

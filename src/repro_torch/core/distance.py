@@ -1,4 +1,4 @@
-"""Distance primitives (port of :mod:`repro.core.distance`, L2 only).
+"""Distance primitives (port of :mod:`repro.core.distance`).
 
 Graph algorithms work on *squared* L2 distances; the LID estimator takes the
 square root itself.  The exact scans (:func:`brute_force_topk`,
@@ -6,6 +6,12 @@ square root itself.  The exact scans (:func:`brute_force_topk`,
 (:mod:`repro_torch.kernels.ops`).  :func:`squared_l2` stays the library
 expression (``torch.matmul`` in full float32: the package disables TF32)
 for the callers that want a plain distance matrix.
+
+The inner-product metrics (``ip``, and ``cosine`` on unit-normalised rows)
+are a distance of ``-(q . x)``, smaller is more similar, as the reference
+computes them outside any Pallas kernel: the product stays
+``torch.matmul``, and the scans select with the ``topk`` kernel on those
+(negative) values.
 """
 from __future__ import annotations
 
@@ -13,7 +19,10 @@ import torch
 
 from repro_torch.kernels import ops
 
+# Metric names accepted across the package.
 L2 = "l2"
+IP = "ip"  # inner product (maximum inner product search, negated)
+COSINE = "cosine"
 
 
 def squared_l2(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -24,33 +33,61 @@ def squared_l2(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return d2.clamp_min(0.0)
 
 
+def neg_inner_product(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Negated inner product as a distance (smaller = more similar)."""
+    return -(q @ x.T)
+
+
+def _unit_rows(v: torch.Tensor) -> torch.Tensor:
+    """Rows over their L2 norm + 1e-12 (the reference's cosine)."""
+    return v / (torch.linalg.norm(v, dim=-1, keepdim=True) + 1e-12)
+
+
 def pairwise(q: torch.Tensor, x: torch.Tensor, metric: str = L2) -> torch.Tensor:
-    if metric != L2:
-        raise ValueError(f"unsupported metric {metric!r} (the port has L2)")
-    return squared_l2(q, x)
+    """(Q, D), (N, D) -> (Q, N) distances in ``metric``."""
+    if metric == L2:
+        return squared_l2(q, x)
+    if metric == IP:
+        return neg_inner_product(q, x)
+    if metric == COSINE:
+        return neg_inner_product(_unit_rows(q), _unit_rows(x))
+    raise ValueError(f"unknown metric {metric!r}")
+
+
+def point_to_points(q: torch.Tensor, x: torch.Tensor,
+                    metric: str = L2) -> torch.Tensor:
+    """(D,) query vs (M, D) points -> (M,) distances."""
+    return pairwise(q[None, :], x, metric)[0]
 
 
 def brute_force_topk(q: torch.Tensor, x: torch.Tensor, k: int,
                      metric: str = L2, chunk: int = 65536
                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """Exact top-k nearest neighbours (any k >= 1) by a chunked scan over the
-    base set: for each chunk one :func:`ops.bulk_l2` and one
-    :func:`ops.topk` (the kernels on the card, their plain versions on the
-    CPU), merged into the running best with a stable sort, so ties go to
-    the lower id wherever they fall; the result equals one stable argsort
-    over all N and does not depend on ``chunk``.
+    base set: for each chunk one distance matrix and one :func:`ops.topk`
+    (the kernel on the card, its plain version on the CPU), merged into the
+    running best with a stable sort, so ties go to the lower id wherever
+    they fall; the result equals one stable argsort over all N and does not
+    depend on ``chunk``.  The L2 matrix is :func:`ops.bulk_l2` (the
+    ``l2_distance`` kernel); ``ip`` and ``cosine`` are
+    :func:`neg_inner_product` (cosine on rows normalised once up front,
+    as the reference normalises each chunk's rows).
 
     Returns (dists, ids): each (Q, k), ascending (ids int32; -1/inf where
     N < k).
     """
-    if metric != L2:
-        raise ValueError(f"unsupported metric {metric!r} (the port has L2)")
+    if metric not in (L2, IP, COSINE):
+        raise ValueError(f"unknown metric {metric!r}")
+    if metric == COSINE:
+        q, x = _unit_rows(q), _unit_rows(x)
     n, nq = x.shape[0], q.shape[0]
     q, x = q.contiguous(), x.contiguous()
     best_d = torch.full((nq, k), torch.inf, dtype=torch.float32, device=q.device)
     best_i = torch.full((nq, k), -1, dtype=torch.int32, device=q.device)
     for start in range(0, n, chunk):
-        d = ops.bulk_l2(q, x[start:start + chunk])
+        xs = x[start:start + chunk]
+        d = (ops.bulk_l2(q, xs) if metric == L2
+             else neg_inner_product(q, xs).contiguous())
         d, pos = ops.topk(d, min(k, d.shape[1]))
         cat_d = torch.cat([best_d, d], 1)
         cat_i = torch.cat([best_i, pos + start], 1)
@@ -65,7 +102,8 @@ def knn_graph(x: torch.Tensor, k: int, metric: str = L2, chunk_q: int = 1024,
     """Exact k-NN of every point against the dataset, self excluded: one
     :func:`brute_force_topk` of k + 1 per ``chunk_q`` rows.
 
-    Returns (dists, ids): each (N, k), ascending squared L2.
+    Returns (dists, ids): each (N, k), ascending; squared L2 for the l2
+    metric.
     """
     n = x.shape[0]
     outs_d, outs_i = [], []

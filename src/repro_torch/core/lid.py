@@ -57,15 +57,21 @@ def calibrate(lid: torch.Tensor) -> LidProfile:
 
 
 def estimate_dataset_lid(x: torch.Tensor, k: int = 16, chunk_q: int = 4096,
-                         chunk: int = 65536) -> LidProfile:
+                         chunk: int = 65536,
+                         metric: str = dist_mod.L2) -> LidProfile:
     """Phase 1 (Geometric Calibration) of Algorithm 1: exact k-NN of every
-    point, batched MLE, population aggregation.  The estimate runs through
-    the ``lid_estimate`` kernel on :func:`knn_graph`'s ascending output,
-    with that kernel's clamp (1e-24 on d2; the reference's
+    point, batched MLE, population aggregation.  For L2 the estimate runs
+    through the ``lid_estimate`` kernel on :func:`knn_graph`'s ascending
+    output, with that kernel's clamp (1e-24 on d2; the reference's
     :func:`lid_from_dists` clamps r at 1e-12, which differs only for
-    d2 < 1e-24)."""
-    d, _ = dist_mod.knn_graph(x, k=k, chunk_q=chunk_q, chunk=chunk)
-    return calibrate(ops.lid_estimate(d))
+    d2 < 1e-24).  Other metrics take :func:`lid_from_dists` on the raw
+    distances (``squared=False``), as the reference does, whatever numbers
+    that gives for negated inner products."""
+    d, _ = dist_mod.knn_graph(x, k=k, metric=metric, chunk_q=chunk_q,
+                              chunk=chunk)
+    if metric == dist_mod.L2:
+        return calibrate(ops.lid_estimate(d))
+    return calibrate(lid_from_dists(d, squared=False))
 
 
 def bootstrap_stats(x: torch.Tensor, generator: torch.Generator | None = None,

@@ -126,30 +126,32 @@ def _pq_eval(codes: torch.Tensor) -> DistEval:
 def _init_state(ctxs: torch.Tensor, entry, eval_dists: DistEval, n: int,
                 beam_width: int, excl_words: torch.Tensor | None = None):
     """Fresh search state for every lane: the entry node in beam slot 0 and
-    its visited bit set.  ``excl_words`` ((Q, ceil(n/32)) int32, from
+    its visited bit set.  ``entry`` is one node for every lane or a (Q,)
+    vector of one a lane (HNSW's layer 0 starts each query where its
+    descent ended).  ``excl_words`` ((Q, ceil(n/32)) int32, from
     :func:`pack_filter`) pre-seeds the visited set with a per-query filter;
     an excluded entry gets distance inf (traversed through, scrubbed at
-    exit)."""
+    exit).  Nothing here reads the device from the host."""
     q, dev = ctxs.shape[0], ctxs.device
     nw = (n + 31) // 32
-    entry = torch.as_tensor(entry, dtype=torch.int32, device=dev).reshape(())
-    e = entry.expand(q)[:, None]
+    entry = torch.as_tensor(entry, dtype=torch.int32, device=dev)
+    e = (entry.reshape(()).expand(q) if entry.numel() == 1
+         else entry.reshape(q))[:, None]
     entry_d = eval_dists(ctxs, e, torch.ones((q, 1), dtype=torch.bool,
                                              device=dev))[:, 0]
-    # A one-element index: a 0-dim one would be read on the host.
-    word = (entry >> 5).long().reshape(1)
-    bit = _bits(entry)
+    word, bit = (e >> 5).long(), _bits(e)
     if excl_words is None:
         visited = torch.zeros((q, nw), dtype=torch.int32, device=dev)
-        visited[:, word] = bit
+        visited.scatter_(1, word, bit)
     else:
-        entry_d = torch.where((excl_words[:, word][:, 0] & bit) != 0,
-                              torch.inf, entry_d)
+        old = torch.gather(excl_words, 1, word)
+        entry_d = torch.where((old[:, 0] & bit[:, 0]) != 0, torch.inf,
+                              entry_d)
         visited = excl_words.clone()
-        visited[:, word] |= bit
+        visited.scatter_(1, word, old | bit)
     beam_ids = torch.full((q, beam_width), INVALID, dtype=torch.int32,
                           device=dev)
-    beam_ids[:, 0] = entry
+    beam_ids[:, 0] = e[:, 0]
     beam_d = torch.full((q, beam_width), torch.inf, dtype=torch.float32,
                         device=dev)
     beam_d[:, 0] = entry_d
@@ -254,8 +256,9 @@ def run_batch(states, ctxs, adj, eval_dists: DistEval, beam_width: int,
 def fixed_search_batch(ctxs, adj, entry, eval_dists: DistEval, n: int,
                        beam_width: int, max_hops: int, excl=None,
                        active_count=None):
-    """Batched fixed-beam walk: init every lane, hand the batch to
-    :func:`run_batch`; ``excl`` filters the walk in-graph.
+    """Batched fixed-beam walk: init every lane (``entry`` one node or one a
+    lane), hand the batch to :func:`run_batch`; ``excl`` filters the walk
+    in-graph.
     ``active_count``: see :func:`run_batch`."""
     states = _init_state(ctxs, entry, eval_dists, n, beam_width, excl)
     beam_ids, beam_d, _, _, hops, evals = run_batch(

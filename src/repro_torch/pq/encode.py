@@ -1,4 +1,4 @@
-"""Vector -> PQ code transform (port of :func:`repro.pq.encode.pq_encode`)."""
+"""Vector <-> PQ code transforms (port of :mod:`repro.pq.encode`)."""
 from __future__ import annotations
 
 import torch
@@ -22,3 +22,12 @@ def pq_encode(x: torch.Tensor, book: PqCodebook,
     if not out:
         return torch.empty((0, m), dtype=torch.uint8, device=x.device)
     return torch.cat(out)
+
+
+def pq_decode(codes: torch.Tensor, book: PqCodebook) -> torch.Tensor:
+    """(N, M) codes -> (N, D) reconstructed vectors (each subspace's
+    codebook centroid)."""
+    cb = book.centroids                                   # (M, K, dsub)
+    m = cb.shape[0]
+    sub = torch.arange(m, device=cb.device)[None, :]
+    return cb[sub, codes.long()].reshape(codes.shape[0], -1)
