@@ -35,13 +35,17 @@ Phases, each printed on its own lines; any failure exits non-zero:
    fewer than k finite entries and 8 rows cut into segments), at k = 100
    and 101 (the 128-key warp-select), at k = 2048 (the radix select) on 8
    rows with ties, +inf and NaN, and at [adc]'s chunk shape (256 x 1M,
-   k = 10 and 100), each timed: values bitwise and ids exactly equal;
+   k = 10 and 100), and at the MoE routers' shapes (1024 tokens x 64
+   experts, k = 6; x 128, k = 8; negated softmax probabilities with a
+   uniform row, a row of three levels and a row of -0.0), each timed:
+   values bitwise and ids exactly equal;
    ``lid_estimate`` at 1M x 16, 1M x 1 and 100k x 100 within rtol 1e-4
    (timed at 1M x 16); ``decode_attention`` at
    qwen2-7b's heads (28 query, 4 KV, d=128, bfloat16 cache) at
    [lm-serve]'s shape (B=8, S=160), at the ``decode_32k`` shape with batch
-   cut to 16 and at the ``long_500k`` shape, ragged kv_len including 0, 1
-   and S, within 3e-4; ``pq_scan`` at
+   cut to 16 and at the ``long_500k`` shape, and at the zoo's other GQA
+   heads (32 / 4 / 128, 56 / 8 / 128, 36 / 36 / 64) at [lm-serve]'s shape,
+   ragged kv_len including 0, 1 and S, within 3e-4; ``pq_scan`` at
    (256, 16, 256) LUTs x (1M, 16) codes, bit for bit on integer-valued LUTs
    and within 1e-5 on float LUTs, timed on random codes and on all-zero
    codes (the design's conflict-free floor on the card), beside its bytes
@@ -243,23 +247,50 @@ Phases, each printed on its own lines; any failure exits non-zero:
    this process (tiny-mixture, MCGI and Vamana), its launch counts
    printed; fails unless ``beam_step`` exact, ``l2_distance``, ``topk``
    and ``lid_estimate`` launched;
-4. the LM paths, with the MCGI world freed — qwen2-7b at full width
+4. the LM paths, with the MCGI world freed; every model at full width and
+   depth, weights drawn from --seed in bfloat16 on the card, the card's
+   cache emptied between models.  qwen2-7b
    (``repro_torch/configs/qwen2_7b.py``: 28 layers, d_model 3584, 28 query
-   and 4 KV heads, d_ff 18944, vocab 152064, QKV bias), weights drawn from
-   --seed in bfloat16 on the card:
+   and 4 KV heads, d_ff 18944, vocab 152064, QKV bias):
    [lm-serve] 8 prompts of 128 tokens teacher-forced through
    ``decode_step`` into a cache of 160, then greedy generation to 32
    tokens a row; ``prefill(prompts)``'s last logits against the decode
    path's at position 127 within a relative L2 error of 5e-2;
    ``decode_attention``'s outputs at layer 0 of steps 0, 127 and 158
    within 3e-4 of its plain version on the same tensors; a second run
-   must generate identical tokens; tokens/s and the step's p50 / p99;
+   must generate identical tokens; tokens/s, the step's p50 / p99 against
+   its bound, aten calls a step;
    [lm-decode_32k] (B=16 of the cell's 128, S=32768) and [lm-long_500k]
    (B=1, S=524288): the cache filled with random bfloat16 values from the
    seed, kv_len = S - 1, 16 steps: the step's p50 / p99 ms and tokens/s
    against its bound, ``decode_attention``'s device ms per launch and its
    share of the step; fails unless ``decode_attention`` launched 28 times a
-   step on each path;
+   step on each path.  Then the rest of the zoo:
+   [lm-dsv2-serve] deepseek-v2-lite-16b (27 layers, MLA with a 512 + 64
+   latent cache, 64 routed experts top-6 + 2 shared, the first layer
+   dense; 15,706,484,224 parameters) at [lm-serve]'s shape, MLA absorbed;
+   at steps 0, 127 and 158 of the second run the naive form on a copy of
+   the cache, within 5e-2 relative L2 of the absorbed logits with the
+   absorbed step's experts replayed (the figure without the replay and
+   the share of routing choices that then differ printed); ``prefill``
+   at the published capacity factor (its share of dropped assignments
+   printed) and at one where cap = the prompt's tokens (checked), whose
+   last logits are printed against the decode path's with the share of
+   (token, layer) routing choices that differ (not gated: a near-tied
+   bfloat16 router flips experts); the gate is a float32 copy of the
+   first 4 layers (prefill without drops vs decode within 5e-2);
+   ``topk`` 26 launches a step (the router), ``decode_attention`` none;
+   [lm-dsv2-decode_32k] and [lm-dsv2-long_500k] as qwen2's cells on the
+   latent cache, decode_32k's batch cut from 128 to 32, the largest
+   power of two whose cache fits beside the weights (printed as a cut);
+   [lm-qwen3moe-serve] qwen3-moe-30b-a3b (48 layers, GQA 32 / 4 with q/k
+   norm, 128 experts top-8), [lm-dscoder-serve] deepseek-coder-33b (62
+   layers, GQA 56 / 8) and [lm-minicpm-serve] minicpm-2b (40 layers, MHA
+   36 heads of 64, tied embeddings, the µP knobs): 8 prompts of 32 tokens,
+   greedy to 8, twice with identical tokens, ``decode_attention`` launched
+   ``n_layers`` times a step and its layer-0 outputs within 3e-4 of the
+   plain version at two steps; the two dense ones hold prefill against
+   decode within 5e-2 in bfloat16, qwen3-moe as deepseek-v2-lite does;
 5. the kernels line (launches of each kernel on every path), then one JSON
    object per the port's contract, and the device line last.
 
@@ -277,6 +308,7 @@ profiler's overhead.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import os
@@ -326,6 +358,7 @@ PQ_Q, PQ_M, PQ_K = 256, 16, 256          # one adc_topk chunk at N = 1M
 ADC_K = 10
 ADC_K_WIDE = 100                         # recall@100's k
 TOPK_K_RADIX = 2048                      # a k past the warp-select's 256
+ROUTER_TOKENS = 1024                     # phase 2: the MoE routers' topk
 # Instructions of IEEE sqrtf + division + logf an element, counted as
 # float32 operations for lid_estimate's bound.
 LID_OPS_PER_ELEMENT = 40
@@ -340,6 +373,20 @@ PREFILL_REL_L2 = 5e-2
 # (cell, batch, S): decode_32k's batch is cut from 128 (224 GiB of cache).
 LM_CELLS = (("decode_32k", 16, 32768), ("long_500k", 1, 524288))
 LM_CELL_STEPS = 16
+# The rest of the LM zoo, each at full width and depth: (arch, tag).
+LM_ZOO = (("deepseek-v2-lite-16b", "dsv2"), ("qwen3-moe-30b-a3b", "qwen3moe"),
+          ("deepseek-coder-33b", "dscoder"), ("minicpm-2b", "minicpm"))
+# The MLA model's cells: (cell, batch, S).  decode_32k's batch is cut
+# from 128 to 32, whose 32.6 GB latent cache fits beside 31.4 GB of
+# weights (64 would not).
+ZOO_CELLS = (("decode_32k", 32, 32768), ("long_500k", 1, 524288))
+ZOO_PROMPT, ZOO_GEN = 32, 8            # the GQA three: kept short (time)
+ZOO_ATTN_STEPS = (0, ZOO_PROMPT + ZOO_GEN - 2)
+# MLA's naive form against the absorbed one in bfloat16, the absorbed
+# step's experts replayed (a near-tied router otherwise flips experts):
+# the CPU shows 1.1e-2 at 3 layers and 1.8e-2 at 27 (width 256).
+MLA_FORM_REL_L2 = 5e-2
+F32_LAYERS = 4                         # MoE prefill gate: a float32 copy
 LIVE_INSERTS, LIVE_INSERT_CALLS = 10_000, 10     # [live]: the last 10k rows
 LIVE_DELETES = 10_000
 LIVE_RECALL_FLOOR = 0.75
@@ -954,6 +1001,26 @@ def topk_adc_shape(dev, g, d: int) -> list[dict]:
     return [topk_timed(dist, k, "[adc]'s chunk") for k in (ADC_K, ADC_K_WIDE)]
 
 
+def topk_router_shapes(dev, g) -> list[dict]:
+    """``topk`` at the MoE routers' shapes: 1024 tokens x 64 experts at
+    k = 6 (deepseek-v2-lite) and x 128 at k = 8 (qwen3-moe), on negated
+    softmax probabilities as the router passes them, with planted ties (a
+    uniform row, a row of three levels, a row of zeros: -0.0 after the
+    negation); held to ``topk_ref`` bit for bit, then timed."""
+    import torch
+
+    out = []
+    for e, k in ((64, 6), (128, 8)):
+        probs = torch.softmax(torch.randn((ROUTER_TOKENS, e), generator=g,
+                                          device=dev) * 2, dim=-1)
+        probs[0] = 1.0 / e
+        levels = torch.randint(0, 3, (e,), generator=g, device=dev).float()
+        probs[1] = (levels + 1) / (levels + 1).sum()
+        probs[2] = 0.0
+        out.append(topk_timed(-probs, k, f"router, {e} experts"))
+    return out
+
+
 def check_bulk_kernels(dev, seed: int) -> list[dict]:
     """Phase 2 for ``l2_distance``, ``topk`` and ``lid_estimate`` at the
     shapes the main path gives them: one k-NN chunk of the build (4096
@@ -1045,7 +1112,8 @@ def check_bulk_kernels(dev, seed: int) -> list[dict]:
     rec = record("topk", 0.0, t["ms"], t["plain_ms"], t["library_ms"],
                  (t["bound_ms"], t["bound_by"]),
                  "values bitwise, ids equal (k = 10, 17, 100, 101, "
-                 f"{TOPK_K_RADIX})")
+                 f"{TOPK_K_RADIX}; the routers' 1024 x 64, k = 6 and "
+                 f"1024 x 128, k = 8)")
     # Past the 64-key list: recall@100's k (and 101, as a k-NN asks for
     # k + 1) at the k-NN shape, and the radix select past 256 on a few
     # rows: planted ties, a row of 5 finite entries padded by +inf, NaN.
@@ -1059,6 +1127,7 @@ def check_bulk_kernels(dev, seed: int) -> list[dict]:
     del d, tied, q, x, few
     rec["adc_shape"] = topk_adc_shape(dev, g, cfg.d)
     rec["large_k"] = wide
+    rec["router"] = topk_router_shapes(dev, g)
     out.append(rec)
 
     # lid_estimate on 1M ascending k=16 rows, duplicates included.
@@ -1168,7 +1237,8 @@ def attention_check(where: str, q, k, v, lens, got=None) -> float:
 def check_decode_attention(dev, seed: int) -> dict:
     """decode_attention at qwen2-7b's heads against its plain version at
     the lm-serve (B=8, S=160), decode_32k (B=16) and long_500k shapes;
-    timed at kv_len = S - 1, the LM cells' length."""
+    timed at kv_len = S - 1, the LM cells' length.  Then at the zoo's
+    other GQA heads (:func:`check_zoo_heads`)."""
     import torch
 
     from repro_torch.kernels import ops, ref
@@ -1219,10 +1289,59 @@ def check_decode_attention(dev, seed: int) -> dict:
     rec = record("decode_attention", err, t["ms"], t["plain_ms"],
                  t["library_ms"], (t["bound_ms"], t["bound_by"]),
                  f"bfloat16 cache within {ATTN_TOL} at lm-serve's (8, 160) "
-                 f"ragged, decode_32k (B=16) and long_500k; kv_len = 0 "
-                 f"gives zeros")
+                 f"ragged, decode_32k (B=16) and long_500k, and at the "
+                 f"zoo's heads 32/4/128, 56/8/128, 36/36/64 at (8, 160) "
+                 f"ragged; kv_len = 0 gives zeros")
     rec["long_500k"] = timings["long_500k"]
+    rec["zoo_heads"] = check_zoo_heads(dev, g)
+    rec["max_abs_err"] = max(err, *(t["max_abs_err"]
+                                    for t in rec["zoo_heads"].values()))
     return rec
+
+
+def check_zoo_heads(dev, g) -> dict:
+    """decode_attention at the head shapes of the zoo's other GQA archs
+    (qwen3-moe 32 / 4 / 128, deepseek-coder 56 / 8 / 128 (a group of 7),
+    minicpm 36 / 36 / 64 (a group of 1)) at [lm-serve]'s (B=8, S=160):
+    within ATTN_TOL of the plain version on ragged kv_len with 0, 1 and
+    S, then timed at kv_len = S - 1 beside SDPA and the bound."""
+    import torch
+
+    from repro_torch.configs import base
+    from repro_torch.kernels import ops, ref
+
+    b, s = LM_BATCH, LM_PROMPT + LM_GEN
+    out = {}
+    for arch, _ in LM_ZOO:
+        cfg = base.get(arch).config
+        if cfg.attention != "gqa":
+            continue
+        hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+        q = torch.randn((b, hq, d), generator=g, device=dev).bfloat16()
+        k = torch.randn((b, s, hkv, d), generator=g, device=dev).bfloat16()
+        v = torch.randn((b, s, hkv, d), generator=g, device=dev).bfloat16()
+        ragged = torch.randint(1, s + 1, (b,), generator=g, device=dev,
+                               dtype=torch.int32)
+        ragged[:3] = torch.tensor([0, 1, s], device=dev)
+        err = attention_check(f"phase 2 {arch}", q, k, v, ragged)
+        lens = torch.full((b,), s - 1, device=dev, dtype=torch.int32)
+        ms, host = time_calls(lambda: ops.decode_attention(q, k, v, lens),
+                              hold=True)
+        plain_ms, _ = time_calls(
+            lambda: ref.decode_attention_gqa_ref(q, k, v, lens), hold=False)
+        lib_ms = sdpa_time(q, k, v, lens)
+        bound = attention_bound(lens, s, hq, hkv, d, 2)
+        out[arch] = dict(heads=[hq, hkv, d], max_abs_err=err, ms=ms,
+                         plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=bound[0], bound_by=bound[1])
+        log(f"[phase2] decode_attention {arch} B={b} S={s} Hq={hq} "
+            f"Hkv={hkv} (group {hq // hkv}) d={d} bf16: within {ATTN_TOL} "
+            f"on ragged kv_len {ragged.tolist()} (max abs err {err:.3g}); at "
+            f"kv_len = S-1 kernel {ms:.4f} ms on the device ({host:.4f} ms "
+            f"host), plain {plain_ms:.4f} ms, library "
+            f"{'refused' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
+            f"{bound[0]:.4f} ms ({bound[1]})")
+    return out
 
 
 def check_pq_scan(dev, seed: int) -> dict:
@@ -3753,21 +3872,23 @@ def recall_of(results, gts) -> float:
 
 # ------------------------------------------------------------- phase 4: LM
 
-def lm_params(dev, seed: int):
-    """qwen2-7b's parameters at full width, drawn in bfloat16 on the card."""
+def lm_params(cfg, dev, seed: int, salt: int):
+    """``cfg``'s parameters at full width and depth, drawn in bfloat16 on
+    the card from the seed."""
     import torch
 
     from repro_torch.models import transformer
 
-    cfg = qwen2()
-    g = torch.Generator(device=dev).manual_seed(seed + 505)
+    g = torch.Generator(device=dev).manual_seed(seed + salt)
     t0 = time.perf_counter()
     params = transformer.init_lm(cfg, g, device=dev)
     sync(dev)
     n = cfg.n_params()
-    log(f"[lm] {cfg.name} at full width: {n} parameters in {cfg.dtype} "
-        f"({n * 2 / 1e9:.2f} GB) drawn from --seed in "
-        f"{time.perf_counter() - t0:.1f}s")
+    active = (f", {cfg.n_active_params()} active a token" if cfg.moe
+              else "")
+    log(f"[lm] {cfg.name} at full width and depth ({cfg.n_layers} layers): "
+        f"{n} parameters{active} in {cfg.dtype} ({n * 2 / 1e9:.2f} GB) "
+        f"drawn from --seed in {time.perf_counter() - t0:.1f}s")
     return params
 
 
@@ -3778,20 +3899,30 @@ def step_stats(ms: list) -> str:
             f"{float(np.percentile(ms, 99)):.3f} ms")
 
 
-def step_bound(params, b: int, kv_len: int) -> str:
-    """Least time of one decode step: every weight read once (of the
-    embedding only the B rows looked up) and the K/V cache up to kv_len of
-    every layer, at the HBM rate."""
+def kv_token_bytes(cfg) -> int:
+    """Bytes of one token's bfloat16 cache entry in one layer: K and V, or
+    MLA's latent and rope key."""
+    if cfg.attention == "mla":
+        return (cfg.mla.kv_lora_rank + cfg.mla.qk_rope_dim) * 2
+    return 2 * cfg.n_kv_heads * cfg.d_head * 2
+
+
+def step_bound(cfg, params, b: int, kv_len: int) -> tuple[float, str]:
+    """Least time of one decode step: every weight read once (of an untied
+    embedding only the B rows looked up; every expert, as no-drop decode
+    runs each) and the cache up to kv_len of every layer, at the HBM
+    rate."""
     from repro_torch.models import transformer
 
-    cfg = qwen2()
     weights = sum(t.numel() * t.element_size()
-                  for t in transformer.leaves(params)) - (
-        params["embed"].numel() - b * cfg.d_model) * 2
-    kv = b * kv_len * cfg.n_layers * 2 * cfg.n_kv_heads * cfg.d_head * 2
+                  for t in transformer.leaves(params))
+    if not cfg.tie_embeddings:
+        emb = params["embed"]
+        weights -= (emb.shape[0] - b) * emb.shape[1] * emb.element_size()
+    kv = b * kv_len * cfg.n_layers * kv_token_bytes(cfg)
     ms = (weights + kv) / HBM_BYTES_PER_S * 1e3
-    return (f"{ms:.3f} ms ({(weights + kv) / 1e9:.1f} GB of weights and "
-            f"cache at {HBM_BYTES_PER_S / 1e12:.2f} TB/s)")
+    return ms, (f"{ms:.3f} ms ({(weights + kv) / 1e9:.1f} GB of weights and "
+                f"cache at {HBM_BYTES_PER_S / 1e12:.2f} TB/s)")
 
 
 def aten_calls(fn) -> int:
@@ -3812,140 +3943,373 @@ def aten_calls(fn) -> int:
     return Count.n
 
 
-def lm_serve(params, dev, seed: int) -> dict:
-    """[lm-serve]: teacher-force LM_BATCH prompts of LM_PROMPT tokens
-    through ``decode_step``, then generate greedily to LM_GEN tokens a row;
-    check prefill against the decode path, decode_attention's outputs
-    against its plain version, and that a second run generates the same
-    tokens.  Returns the launch counts of the first run and the kernel's
-    max abs error."""
-    import torch
-
+@contextlib.contextmanager
+def routes_kept(kept: list, forced=None):
+    """Wrap the MoE router: each call's (T, k) expert ids appended to
+    ``kept``.  With ``forced`` (an iterator of earlier ids) the router's
+    top-k selection returns those ids, its values gathered from its own
+    input (no ``topk`` launch): the same experts, this path's gates."""
     from repro_torch.kernels import ops
-    from repro_torch.models import transformer
+    from repro_torch.models import moe
 
-    cfg = qwen2()
-    g = torch.Generator(device=dev).manual_seed(seed + 606)
-    prompts = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT), generator=g,
-                            device=dev)
-    max_len = LM_PROMPT + LM_GEN
-    seen, step = {}, [0]
+    real, real_topk = moe._route, ops.topk
 
-    def spy(q, k, v, kv_len):
-        """ops.decode_attention that keeps layer 0's inputs and output at
-        the steps of LM_CHECK_STEPS (it adds copies, no launch)."""
-        out = real(q, k, v, kv_len)
-        if step[0] in LM_CHECK_STEPS and step[0] not in seen:
-            seen[step[0]] = tuple(x.clone() for x in (q, k, v, kv_len, out))
+    def route(p, cfg, x):
+        out = real(p, cfg, x)
+        kept.append(out[0])
         return out
 
-    def generate():
-        cache = transformer.init_cache(cfg, LM_BATCH, max_len, device=dev)
-        step_ms, tokens, last = [], [], None
-        feed = prompts[:, :1]
-        for t in range(LM_PROMPT + LM_GEN - 1):
-            step[0] = t
-            lens = torch.full((LM_BATCH,), t, dtype=torch.int32, device=dev)
+    def replay(x, k):
+        e = next(forced)
+        return x.gather(1, e.long()), e
+
+    moe._route = route
+    if forced is not None:
+        ops.topk = replay
+    try:
+        yield kept
+    finally:
+        moe._route = real
+        ops.topk = real_topk
+
+
+@contextlib.contextmanager
+def drops_counted(tally: list):
+    """Wrap the MoE dispatch: [kept, total] assignments in ``tally``."""
+    from repro_torch.models import moe
+
+    real = moe._dispatch_group
+
+    def dispatch(x_g, eid_g, cap, n_experts):
+        out = real(x_g, eid_g, cap, n_experts)
+        tally[0] += int(out[2].sum())
+        tally[1] += out[2].numel()
+        return out
+    moe._dispatch_group = dispatch
+    try:
+        yield tally
+    finally:
+        moe._dispatch_group = real
+
+
+def route_diff(dec: list, pre: list, b: int, p: int, n_moe: int) -> float:
+    """Share of (token, layer) routing choices of the teacher-forced decode
+    steps (one (B, k) a MoE layer a step) that differ from the prefill's
+    (one (B * P, k) a MoE layer) as sets of experts."""
+    import torch
+
+    d = torch.stack([e.sort(-1).values for e in dec[:p * n_moe]])
+    d = d.reshape(p, n_moe, b, -1).permute(2, 0, 1, 3)         # (B, P, L, k)
+    f = torch.stack([e.sort(-1).values for e in pre])           # (L, BP, k)
+    f = f.reshape(n_moe, b, p, -1).permute(1, 2, 0, 3)
+    return float((d != f).any(-1).float().mean())
+
+
+def rel_l2(a, b) -> float:
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+def no_drop_cfg(cfg, t: int):
+    """``cfg`` with the smallest capacity factor at which an MoE group of
+    ``t`` tokens gets cap = t, as ``no_drop`` gives: n_experts / top_k,
+    moved up by float steps where its rounding would give t - 1."""
+    import dataclasses
+    import math
+
+    e, k = cfg.moe.n_experts, cfg.moe.top_k
+    cf = e / k
+    nudged = 0
+    while int(cf * t * k / e) < t:
+        cf, nudged = math.nextafter(cf, math.inf), nudged + 1
+    if max(int(cf * t * k / e), 1) != t:
+        raise AssertionError(f"capacity factor {cf!r} gives cap "
+                             f"{int(cf * t * k / e)}, not {t}")
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cf)), cf, nudged
+
+
+def generate(cfg, params, dev, prompts, gen: int, naive_at=(),
+             on_step=None, routes: list | None = None):
+    """Teacher-force ``prompts`` (B, P) through ``decode_step``, then
+    generate greedily to ``gen`` tokens a row.  Returns the generated
+    tokens, the logits at position P - 1, each step's ms and, at the steps
+    of ``naive_at`` (MLA), :func:`mla_forms`' figures.  ``on_step(t)`` is
+    called before step t; ``routes`` gathers every step's expert ids."""
+    import torch
+
+    from repro_torch.models import transformer
+
+    b, prompt = prompts.shape
+    cache = transformer.init_cache(cfg, b, prompt + gen, device=dev)
+    step_ms, tokens, last, forms = [], [], None, {}
+    feed = prompts[:, :1]
+    for t in range(prompt + gen - 1):
+        if on_step is not None:
+            on_step(t)
+        lens = torch.full((b,), t, dtype=torch.int32, device=dev)
+        pre = ({k: v.clone() for k, v in cache.items()} if t in naive_at
+               else None)
+        ids = []
+        keep = routes is not None or pre is not None
+        with routes_kept(ids) if keep else contextlib.nullcontext():
             t0 = time.perf_counter()
             logits, cache = transformer.decode_step(cfg, params, cache, feed,
                                                     lens)
             nxt = logits.argmax(-1)
             sync(dev)
             step_ms.append((time.perf_counter() - t0) * 1e3)
-            if t == LM_PROMPT - 1:
-                last = logits.float()
-            if t >= LM_PROMPT - 1:
-                tokens.append(nxt)
-            feed = (prompts[:, t + 1:t + 2] if t + 1 < LM_PROMPT
-                    else nxt[:, None])
-        return torch.stack(tokens, 1), last, step_ms
+        if routes is not None:
+            routes += ids
+        if pre is not None:
+            forms[t] = mla_forms(cfg, params, pre, feed, lens, ids, logits)
+        if t == prompt - 1:
+            last = logits.float()
+        if t >= prompt - 1:
+            tokens.append(nxt)
+        feed = (prompts[:, t + 1:t + 2] if t + 1 < prompt else nxt[:, None])
+    return torch.stack(tokens, 1), last, step_ms, forms
 
+
+def mla_forms(cfg, params, pre, feed, lens, ids, absorbed):
+    """The naive MLA form of one step on copies of the cache before it:
+    (relative L2 against the absorbed logits with the absorbed step's
+    experts replayed, the same without the replay, the share of (token,
+    MoE layer) routing choices that differ without it)."""
+    from repro_torch.models import transformer
+
+    copy = {k: v.clone() for k, v in pre.items()}
+    with routes_kept([], forced=iter(ids)):
+        forced, _ = transformer.decode_step(cfg, params, pre, feed, lens,
+                                            mla_absorbed=False)
+    free_ids = []
+    with routes_kept(free_ids):
+        free, _ = transformer.decode_step(cfg, params, copy, feed, lens,
+                                          mla_absorbed=False)
+    diff = sum(float((a.sort(-1).values != f.sort(-1).values).any(-1)
+                     .float().sum()) for a, f in zip(ids, free_ids))
+    share = diff / max(1, sum(a.shape[0] for a in ids))
+    return rel_l2(forced, absorbed), rel_l2(free, absorbed), share
+
+
+def f32_prefix(cfg, params, prompts, dev, tag: str) -> tuple[float, float]:
+    """Prefill against decode in a float32 copy of the first F32_LAYERS
+    layers at full width (the drawn weights cast), MoE without drops:
+    the relative L2 of the last logits (gated at PREFILL_REL_L2) and the
+    share of routing choices that differ.  The GQA cache stays bfloat16,
+    the only cache the ``decode_attention`` kernel takes."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import transformer
+
+    b, p = prompts.shape
+    cfg4 = dataclasses.replace(cfg, n_layers=F32_LAYERS, dtype=torch.float32)
+    p4 = {k: v.float() for k, v in params.items() if k != "layers"}
+    p4["layers"] = [transformer._cast(lp, torch.float32)
+                    for lp in params["layers"][:F32_LAYERS]]
+    cache = transformer.init_cache(
+        cfg4, b, p, device=dev,
+        dtype=torch.float32 if cfg.attention == "mla" else torch.bfloat16)
+    n_moe = sum("moe" in lp for lp in p4["layers"])
+    dec, pre = [], []
+    with routes_kept(dec):
+        for t in range(p):
+            lens = torch.full((b,), t, dtype=torch.int32, device=dev)
+            logits, cache = transformer.decode_step(cfg4, p4, cache,
+                                                    prompts[:, t:t + 1], lens)
+    cfg_nd, _, _ = no_drop_cfg(cfg4, b * p)
+    with routes_kept(pre):
+        full = transformer.prefill(cfg_nd, p4, prompts)
+    sync(dev)
+    rel = rel_l2(full, logits)
+    share = route_diff(dec, pre, b, p, n_moe)
+    del p4, cache
+    torch.cuda.empty_cache()
+    if not rel <= PREFILL_REL_L2:
+        raise AssertionError(f"[{tag}] float32 {F32_LAYERS}-layer prefill vs "
+                             f"decode: relative L2 {rel:.4g} > "
+                             f"{PREFILL_REL_L2}")
+    return rel, share
+
+
+def lm_serve(cfg, params, dev, seed: int, tag: str, prompt: int, gen: int,
+             attn_steps: tuple, salt: int) -> tuple[dict, float]:
+    """[<tag>]: teacher-force LM_BATCH prompts of ``prompt`` tokens through
+    ``decode_step``, then generate greedily to ``gen`` tokens a row; check
+    the launches, GQA's decode_attention outputs at layer 0 of
+    ``attn_steps`` against the plain version, MLA's naive form at
+    LM_CHECK_STEPS, prefill against the decode path, and that a second run
+    generates the same tokens.  An MoE model's prefill is also held in a
+    float32 copy of its first layers (:func:`f32_prefix`), made last.
+    Returns the first run's launch counts and decode_attention's max abs
+    error."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+
+    b = LM_BATCH
+    g = torch.Generator(device=dev).manual_seed(seed + salt)
+    prompts = torch.randint(0, cfg.vocab, (b, prompt), generator=g,
+                            device=dev)
+    steps = prompt + gen - 1
+    n_moe = sum("moe" in lp for lp in params["layers"])
+    gqa = cfg.attention == "gqa"
+    seen, step = {}, [0]
     real = ops.decode_attention
+
+    def spy(q, k, v, kv_len):
+        """ops.decode_attention that keeps layer 0's inputs and output at
+        the steps of ``attn_steps`` (it adds copies, no launch)."""
+        out = real(q, k, v, kv_len)
+        if step[0] in attn_steps and step[0] not in seen:
+            seen[step[0]] = tuple(x.clone() for x in (q, k, v, kv_len, out))
+        return out
+
     ops.decode_attention = spy
     try:
         ops.reset_launch_counts()
         t0 = time.perf_counter()
-        toks, last, step_ms = generate()
+        toks, last, step_ms, _ = generate(
+            cfg, params, dev, prompts, gen,
+            on_step=lambda t: step.__setitem__(0, t))
         secs = time.perf_counter() - t0
         counts = ops.launch_counts()
     finally:
         ops.decode_attention = real
-    steps = LM_PROMPT + LM_GEN - 1
-    # The kernel's own outputs on this path against the plain version on
-    # the same tensors: layer 0 at a teacher-forced and a generated step.
-    if sorted(seen) != sorted(LM_CHECK_STEPS):
-        raise AssertionError(f"[lm-serve] decode_attention inputs kept at "
-                             f"steps {sorted(seen)}, not {LM_CHECK_STEPS}")
-    attn_err = max(attention_check(f"lm-serve step {t}", *seen[t][:4],
-                                   got=seen[t][4]) for t in LM_CHECK_STEPS)
-    del seen
-    if counts["decode_attention"] != cfg.n_layers * steps:
-        raise AssertionError(f"[lm-serve] decode_attention launched "
+    attn_err = 0.0
+    if gqa:
+        if sorted(seen) != sorted(attn_steps):
+            raise AssertionError(f"[{tag}] decode_attention inputs kept at "
+                                 f"steps {sorted(seen)}, not {attn_steps}")
+        attn_err = max(attention_check(f"{tag} step {t}", *seen[t][:4],
+                                       got=seen[t][4]) for t in attn_steps)
+        del seen
+    want_attn = cfg.n_layers * steps if gqa else 0
+    if counts["decode_attention"] != want_attn:
+        raise AssertionError(f"[{tag}] decode_attention launched "
                              f"{counts['decode_attention']} times, not "
-                             f"{cfg.n_layers} per step x {steps} steps")
-    if toks.shape != (LM_BATCH, LM_GEN) or not bool(
+                             f"{want_attn}")
+    if counts["topk"] != n_moe * steps:
+        raise AssertionError(f"[{tag}] topk launched {counts['topk']} times, "
+                             f"not {n_moe} per step x {steps} steps")
+    if toks.shape != (b, gen) or not bool(
             ((toks >= 0) & (toks < cfg.vocab)).all()):
-        raise AssertionError(f"[lm-serve] generated tokens of shape "
+        raise AssertionError(f"[{tag}] generated tokens of shape "
                              f"{tuple(toks.shape)} or outside the vocabulary")
     if not bool(torch.isfinite(last).all()):
-        raise AssertionError("[lm-serve] non-finite logits")
+        raise AssertionError(f"[{tag}] non-finite logits")
+
+    # The second run: the same tokens; MLA's naive form beside it; the
+    # decode path's routing kept for the prefill's.
+    dec_routes = []
+    toks2, _, _, forms = generate(
+        cfg, params, dev, prompts, gen,
+        naive_at=LM_CHECK_STEPS if cfg.attention == "mla" else (),
+        routes=dec_routes if n_moe else None)
+    if not torch.equal(toks, toks2):
+        raise AssertionError(f"[{tag}] a second generation gave other tokens")
+    if forms:
+        worst = max(f[0] for f in forms.values())
+        if not worst <= MLA_FORM_REL_L2:
+            raise AssertionError(f"[{tag}] naive MLA form vs absorbed with "
+                                 f"the experts replayed: relative L2 "
+                                 f"{worst:.4g} > {MLA_FORM_REL_L2}")
+
     t0 = time.perf_counter()
-    pre = transformer.prefill(cfg, params, prompts).float()
+    if n_moe:
+        tally = [0, 0]
+        with drops_counted(tally):
+            transformer.prefill(cfg, params, prompts)
+        drop_share = 1.0 - tally[0] / tally[1]
+        cfg_nd, cf, nudged = no_drop_cfg(cfg, b * prompt)
+        pre_routes = []
+        with routes_kept(pre_routes):
+            pre = transformer.prefill(cfg_nd, params, prompts).float()
+        differ = route_diff(dec_routes, pre_routes, b, prompt, n_moe)
+    else:
+        pre = transformer.prefill(cfg, params, prompts).float()
     sync(dev)
     pre_ms = (time.perf_counter() - t0) * 1e3
-    rel = float((pre - last).norm() / last.norm())
-    if not rel <= PREFILL_REL_L2:
-        raise AssertionError(f"[lm-serve] prefill vs decode logits at "
-                             f"position {LM_PROMPT - 1}: relative L2 "
-                             f"{rel:.4g} > {PREFILL_REL_L2}")
-    toks2, _, _ = generate()
-    if not torch.equal(toks, toks2):
-        raise AssertionError("[lm-serve] a second generation gave other "
-                             "tokens")
-    cache = transformer.init_cache(cfg, LM_BATCH, max_len, device=dev)
+    rel = rel_l2(pre, last)
+    if not n_moe and not rel <= PREFILL_REL_L2:
+        raise AssertionError(f"[{tag}] prefill vs decode logits at position "
+                             f"{prompt - 1}: relative L2 {rel:.4g} > "
+                             f"{PREFILL_REL_L2}")
+    cache = transformer.init_cache(cfg, b, prompt + gen, device=dev)
     calls = aten_calls(lambda: transformer.decode_step(
         cfg, params, cache, prompts[:, :1],
-        torch.zeros((LM_BATCH,), dtype=torch.int32, device=dev)))
+        torch.zeros((b,), dtype=torch.int32, device=dev)))
     del cache
-    gen_ms = step_ms[LM_PROMPT:]
-    gen_rate = LM_BATCH * len(gen_ms) / (sum(gen_ms) / 1e3)
-    log(f"[lm-serve] {LM_BATCH} prompts x {LM_PROMPT} tokens teacher-forced "
-        f"through decode_step, then {LM_GEN} greedy tokens a row ({steps} "
-        f"steps into a cache of {LM_PROMPT + LM_GEN}) in {secs:.2f}s; step "
-        f"{step_stats(step_ms)} (bound at the full cache "
-        f"{step_bound(params, LM_BATCH, max_len)}); generation "
-        f"{gen_rate:.1f} tokens/s ({step_stats(gen_ms)}); prefill of {LM_BATCH}x{LM_PROMPT} "
-        f"in {pre_ms:.1f} ms, its last logits within relative L2 {rel:.3g} "
-        f"of the decode path's (bound {PREFILL_REL_L2}); the second run "
-        f"generated identical tokens; decode_attention's outputs at layer 0 "
-        f"of steps {LM_CHECK_STEPS} (kv_len {[t + 1 for t in LM_CHECK_STEPS]}) "
-        f"within {attn_err:.3g} of the plain version (bound {ATTN_TOL}); "
-        f"one step makes {calls} aten calls "
-        f"(views included); launches "
+    gen_ms = step_ms[prompt:]
+    gen_rate = b * len(gen_ms) / (sum(gen_ms) / 1e3)
+    _, bound = step_bound(cfg, params, b, prompt + gen)
+    checks = ["the second run generated identical tokens"]
+    if gqa:
+        checks.append(f"decode_attention's outputs at layer 0 of steps "
+                      f"{attn_steps} (kv_len {[t + 1 for t in attn_steps]}) "
+                      f"within {attn_err:.3g} of the plain version (bound "
+                      f"{ATTN_TOL})")
+    if forms:
+        checks.append("the naive MLA form at steps " + ", ".join(
+            f"{t}: relative L2 {f[0]:.3g} with the absorbed step's experts "
+            f"replayed ({f[1]:.3g} without; {f[2]:.3f} of routing choices "
+            f"then differ)" for t, f in forms.items())
+            + f" (bound {MLA_FORM_REL_L2}, replayed)")
+    if n_moe:
+        pre_text = (f"prefill of {b}x{prompt} at the published capacity "
+                    f"factor {cfg.moe.capacity_factor} drops "
+                    f"{drop_share:.4f} of routed assignments; at "
+                    f"capacity factor {cf!r} (cap = {b * prompt} tokens"
+                    f"{', float steps added: ' + str(nudged) if nudged else ''}"
+                    f"; no drops) in {pre_ms:.1f} ms with both runs, its last "
+                    f"logits within relative L2 {rel:.3g} of the decode "
+                    f"path's at full depth in bfloat16 (not gated; "
+                    f"{differ:.4f} of (token, layer) routing "
+                    f"choices differ)")
+    else:
+        pre_text = (f"prefill of {b}x{prompt} in {pre_ms:.1f} ms, its last "
+                    f"logits within relative L2 {rel:.3g} of the decode "
+                    f"path's (bound {PREFILL_REL_L2})")
+    log(f"[{tag}] {b} prompts x {prompt} tokens teacher-forced through "
+        f"decode_step, then {gen} greedy tokens a row ({steps} steps into a "
+        f"cache of {prompt + gen}) in {secs:.2f}s; step "
+        f"{step_stats(step_ms)} (bound at the full cache {bound}); "
+        f"generation {gen_rate:.1f} tokens/s ({step_stats(gen_ms)}); "
+        f"{pre_text}; {'; '.join(checks)}; one step makes {calls} aten "
+        f"calls (views included); launches "
         f"{ {k: v for k, v in counts.items() if v} }")
+    if n_moe:
+        rel4, share4 = f32_prefix(cfg, params, prompts, dev, tag)
+        log(f"[{tag}] float32 copy of the first {F32_LAYERS} layers at full "
+            f"width: prefill (no drops) vs decode last logits relative L2 "
+            f"{rel4:.3g} (bound {PREFILL_REL_L2}); {share4:.4f} of routing "
+            f"choices differ")
     return counts, attn_err
 
 
-def lm_cell(params, dev, seed: int, cell: str, b: int, s: int) -> dict:
-    """[lm-<cell>]: LM_CELL_STEPS decode steps at kv_len = S - 1 against a
-    cache of random bfloat16 values.  Returns the launch counts of the
-    timed steps."""
+def lm_cell(cfg, params, dev, seed: int, tag: str, b: int, s: int,
+            full_b: int, salt: int) -> dict:
+    """[<tag>]: LM_CELL_STEPS decode steps at kv_len = S - 1 against a
+    cache of random bfloat16 values (the cell's batch is ``full_b``).
+    Returns the launch counts of the timed steps."""
     import torch
 
-    from repro_torch.configs import qwen2_7b
     from repro_torch.kernels import ops
     from repro_torch.models import transformer
 
-    cfg = qwen2()
-    full_b = qwen2_7b.SPEC.cell(cell).meta["batch"]
     if b < full_b:
-        full_kv = full_b * s * cfg.n_layers * 2 * cfg.n_kv_heads * cfg.d_head
-        log(f"[lm-{cell}] batch cut: {full_b} -> {b} (the cell's KV cache, "
-            f"{full_kv * 2 / 2**30:.0f} GiB, fits no card)")
-    g = torch.Generator(device=dev).manual_seed(seed + 707)
+        full_kv = full_b * s * cfg.n_layers * kv_token_bytes(cfg)
+        log(f"[{tag}] batch cut: {full_b} -> {b} (the cell's cache, "
+            f"{full_kv / 2**30:.0f} GiB, does not fit beside "
+            f"{cfg.n_params() * 2 / 2**30:.1f} GiB of weights on one card)")
+    n_moe = sum("moe" in lp for lp in params["layers"])
+    gqa = cfg.attention == "gqa"
+    g = torch.Generator(device=dev).manual_seed(seed + salt)
     t0 = time.perf_counter()
     cache = transformer.init_cache(cfg, b, s, device=dev)
-    for name in ("k", "v"):
+    for name in cache:
         for i in range(cfg.n_layers):
             cache[name][i].normal_(generator=g)
     sync(dev)
@@ -3964,29 +4328,35 @@ def lm_cell(params, dev, seed: int, cell: str, b: int, s: int) -> dict:
         sync(dev)
         step_ms.append((time.perf_counter() - t0) * 1e3)
     counts = ops.launch_counts()
-    if counts["decode_attention"] != cfg.n_layers * LM_CELL_STEPS:
-        raise AssertionError(f"[lm-{cell}] decode_attention launched "
+    want = cfg.n_layers * LM_CELL_STEPS if gqa else 0
+    if counts["decode_attention"] != want:
+        raise AssertionError(f"[{tag}] decode_attention launched "
                              f"{counts['decode_attention']} times, not "
-                             f"{cfg.n_layers} per step")
+                             f"{want}")
+    if counts["topk"] != n_moe * LM_CELL_STEPS:
+        raise AssertionError(f"[{tag}] topk launched {counts['topk']} "
+                             f"times, not {n_moe} per step")
     if logits.shape != (b, cfg.vocab) or not bool(
             torch.isfinite(logits).all()):
-        raise AssertionError(f"[lm-{cell}] logits of shape "
+        raise AssertionError(f"[{tag}] logits of shape "
                              f"{tuple(logits.shape)} or not finite")
-    # decode_attention alone on layer 0's cache at the step's shape.
-    q = torch.randn((b, cfg.n_heads, cfg.d_head), generator=g,
-                    device=dev).bfloat16()
-    ms, _ = time_calls(lambda: ops.decode_attention(
-        q, cache["k"][0], cache["v"][0], lens + 1), hold=True)
-    attn_bound = attention_bound(lens + 1, s, cfg.n_heads, cfg.n_kv_heads,
-                                 cfg.d_head, 2)
-    p50 = sorted(step_ms)[len(step_ms) // 2]
-    log(f"[lm-{cell}] B={b} S={s} kv_len=S-1, cache filled in {fill_s:.1f}s; "
+    p50 = statistics.median(step_ms)
+    attn = ""
+    if gqa:
+        # decode_attention alone on layer 0's cache at the step's shape.
+        q = torch.randn((b, cfg.n_heads, cfg.d_head), generator=g,
+                        device=dev).bfloat16()
+        ms, _ = time_calls(lambda: ops.decode_attention(
+            q, cache["k"][0], cache["v"][0], lens + 1), hold=True)
+        attn_bound = attention_bound(lens + 1, s, cfg.n_heads,
+                                     cfg.n_kv_heads, cfg.d_head, 2)
+        attn = (f"; decode_attention {ms:.4f} ms on the device per launch "
+                f"(bound {attn_bound[0]:.4f} ms), {cfg.n_layers} launches a "
+                f"step = {100 * cfg.n_layers * ms / p50:.1f}% of the p50 step")
+    log(f"[{tag}] B={b} S={s} kv_len=S-1, cache filled in {fill_s:.1f}s; "
         f"{LM_CELL_STEPS} steps: {step_stats(step_ms)}, "
         f"{b / (p50 / 1e3):.1f} tokens/s at p50; step bound "
-        f"{step_bound(params, b, s)}; decode_attention "
-        f"{ms:.4f} ms on the device per launch (bound {attn_bound[0]:.4f} "
-        f"ms), {cfg.n_layers} launches a step = "
-        f"{100 * cfg.n_layers * ms / p50:.1f}% of the p50 step; launches "
+        f"{step_bound(cfg, params, b, s)[1]}{attn}; launches "
         f"{ {k: v for k, v in counts.items() if v} }")
     del cache
     torch.cuda.empty_cache()
@@ -3994,18 +4364,49 @@ def lm_cell(params, dev, seed: int, cell: str, b: int, s: int) -> dict:
 
 
 def lm_paths(dev, seed: int) -> tuple[dict, float]:
-    """Every LM path; returns ({path: launch counts}, decode_attention's max
-    abs error on [lm-serve])."""
+    """Every LM path: qwen2-7b ([lm-serve] and its two cells), then the
+    rest of the zoo at full width and depth (LM_ZOO).  Returns ({path:
+    launch counts}, decode_attention's max abs error on the paths)."""
     import torch
 
-    params = lm_params(dev, seed)
+    from repro_torch.configs import base
+
     out = {}
-    out["lm-serve"], attn_err = lm_serve(params, dev, seed)
+    cfg = qwen2()
+    params = lm_params(cfg, dev, seed, 505)
+    out["lm-serve"], attn_err = lm_serve(
+        cfg, params, dev, seed, "lm-serve", LM_PROMPT, LM_GEN,
+        LM_CHECK_STEPS, 606)
     torch.cuda.empty_cache()
     for cell, b, s in LM_CELLS:
-        out[f"lm-{cell}"] = lm_cell(params, dev, seed, cell, b, s)
+        full_b = base.get("qwen2-7b").cell(cell).meta["batch"]
+        out[f"lm-{cell}"] = lm_cell(cfg, params, dev, seed, f"lm-{cell}", b,
+                                    s, full_b, 707)
     del params
     torch.cuda.empty_cache()
+    for i, (arch, tag) in enumerate(LM_ZOO):
+        t_phase = time.perf_counter()
+        cfg = base.get(arch).config
+        salt = 811 + 10 * i
+        params = lm_params(cfg, dev, seed, salt)
+        if cfg.attention == "mla":
+            out[f"lm-{tag}-serve"], _ = lm_serve(
+                cfg, params, dev, seed, f"lm-{tag}-serve", LM_PROMPT, LM_GEN,
+                LM_CHECK_STEPS, salt + 1)
+            torch.cuda.empty_cache()
+            for cell, b, s in ZOO_CELLS:
+                full_b = base.get(arch).cell(cell).meta["batch"]
+                out[f"lm-{tag}-{cell}"] = lm_cell(
+                    cfg, params, dev, seed, f"lm-{tag}-{cell}", b, s, full_b,
+                    salt + 2)
+        else:
+            out[f"lm-{tag}-serve"], err = lm_serve(
+                cfg, params, dev, seed, f"lm-{tag}-serve", ZOO_PROMPT,
+                ZOO_GEN, ZOO_ATTN_STEPS, salt + 1)
+            attn_err = max(attn_err, err)
+        del params
+        torch.cuda.empty_cache()
+        log(f"[lm-{tag}] phase {time.perf_counter() - t_phase:.1f} s")
     return out, attn_err
 
 

@@ -1,4 +1,7 @@
-"""Configurations the port runs: the MCGI datasets
-(:mod:`repro_torch.configs.mcgi_datasets`) and the qwen2-7b LM
-(:mod:`repro_torch.configs.qwen2_7b`, through :func:`get`)."""
-from repro_torch.configs.base import ArchSpec, ShapeCell, get  # noqa: F401
+"""Configurations the port runs, all registered in
+:mod:`repro_torch.configs.base` (:func:`get`, :func:`all_archs`): the MCGI
+datasets (:mod:`repro_torch.configs.mcgi_datasets`) and the five LM archs
+(qwen2-7b, deepseek-coder-33b, minicpm-2b, qwen3-moe-30b-a3b and
+deepseek-v2-lite-16b)."""
+from repro_torch.configs.base import (  # noqa: F401
+    ArchSpec, ShapeCell, all_archs, get)

@@ -3,7 +3,8 @@ port's copy of :mod:`repro.configs.base`).
 
 An architecture registers an :class:`ArchSpec` binding its exact published
 configuration, a reduced same-family smoke configuration and its shape
-cells.  :func:`get` loads only the configs the port has: qwen2-7b.
+cells.  :func:`get` and :func:`all_archs` load every config the port has:
+the five LM archs and the MCGI datasets.
 """
 from __future__ import annotations
 
@@ -14,6 +15,10 @@ from typing import Any
 TRAIN = "train"            # train_step (fwd+bwd+optimizer)
 PREFILL = "prefill"        # LM prefill forward
 DECODE = "decode"          # LM single-token decode vs KV cache
+SERVE = "serve"            # recsys forward scoring
+RETRIEVAL = "retrieval"    # 1 user vs n_candidates scoring
+GNN_TRAIN = "gnn_train"    # full-graph or sampled-block train step
+MCGI_SEARCH = "mcgi_search"  # distributed beam search (the paper's serving)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,9 +64,25 @@ def get(arch_id: str) -> ArchSpec:
     return _REGISTRY[arch_id]
 
 
+def all_archs() -> dict[str, ArchSpec]:
+    _ensure_loaded()
+    return dict(_REGISTRY)
+
+
 def _ensure_loaded() -> None:
     # Importing a config module registers it (once: modules import once).
-    from repro_torch.configs import qwen2_7b  # noqa: F401
+    from repro_torch.configs import (  # noqa: F401
+        deepseek_coder_33b,
+        deepseek_v2_lite_16b,
+        mcgi_datasets,
+        minicpm_2b,
+        qwen2_7b,
+        qwen3_moe_30b_a3b,
+    )
+
+
+def pad_to(n: int, multiple: int) -> int:
+    return ((n + multiple - 1) // multiple) * multiple
 
 
 def lm_shapes() -> tuple[ShapeCell, ...]:

@@ -3,8 +3,9 @@
 
 Build parameters (R, L_build, alpha range, m_PQ) are the paper's Table 2
 values; the serving defaults are the jointly calibrated budget laws of the
-reference.  The reference's dry-run registry (``base.register`` /
-``ArchSpec``) waits for the port's launch slice.
+reference.  Each dataset registers an :class:`ArchSpec` of family
+``mcgi`` with a ``-smoke`` variant (n = 4096, 64 queries) and one
+``serve`` shape cell, as the reference's registry has them.
 """
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ import dataclasses
 
 import numpy as np
 
+from repro_torch.configs import base
 from repro_torch.core import calibrate as calibrate_mod
 from repro_torch.core.search import AdaptiveBeamBudget
 
@@ -103,3 +105,28 @@ DATASETS = {c.name: c for c in (
     McgiDatasetConfig("mcgi-t2i1b", 1_000_000_000, 200, 32, 50, 16, "float32",
                       lam=0.45, l_min=16),
 )}
+
+
+def _smoke(cfg: McgiDatasetConfig) -> McgiDatasetConfig:
+    return dataclasses.replace(
+        cfg, name=cfg.name + "-smoke", n=4096, queries=64, l_search=32,
+        max_hops=64, degree=min(cfg.degree, 16), d=min(cfg.d, 64),
+    )
+
+
+for _cfg in DATASETS.values():
+    base.register(
+        base.ArchSpec(
+            arch_id=_cfg.name,
+            family="mcgi",
+            config=_cfg,
+            smoke_config=_smoke(_cfg),
+            shapes=(
+                base.ShapeCell(
+                    "serve", base.MCGI_SEARCH,
+                    {"queries": _cfg.queries, "k": _cfg.k},
+                ),
+            ),
+            source="paper Table 2/3",
+        )
+    )

@@ -1,4 +1,5 @@
-"""The dense-GQA language model of the reference's model zoo (port of
-:mod:`repro.models`: ``layers``, ``blockwise``, the GQA half of
-``attention`` and the dense ``transformer``), whose decode attention runs
-the ``decode_attention`` kernel on the card."""
+"""The LM zoo's serving path (port of :mod:`repro.models`: ``layers``,
+``blockwise``, ``attention`` (GQA and MLA), ``moe`` and ``transformer``):
+five architectures through one ``decode_step`` / ``prefill``, whose GQA
+decode attention runs the ``decode_attention`` kernel and whose MoE router
+runs the ``topk`` kernel on the card."""

@@ -3,8 +3,11 @@
 :func:`lm_params_from_reference` takes the pytree of the reference's
 ``repro.models.transformer.init_lm`` as numpy arrays (for instance
 ``jax.tree.map(np.asarray, params)``) and returns the port's dict: the
-stacked leading layer axis becomes one dict per layer.  Used by the parity
-tests; it imports nothing of the reference.
+stacked leading layer axis becomes one dict per layer, an MoE net's
+``dense_layers`` stack its first entries.  Stacked MoE weights ((E, d, f)
+a layer, ``router``, ``shared``), MLA's keys, ``q_norm`` / ``k_norm`` and
+a tied model without ``lm_head`` carry across as they are.  Used by the
+parity tests; it imports nothing of the reference.
 """
 from __future__ import annotations
 
@@ -14,7 +17,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.models.transformer import TransformerConfig, _check_dense
+from repro_torch.models.transformer import TransformerConfig, leaves
 
 Params = dict[str, Any]
 
@@ -32,15 +35,22 @@ def _tree(tree, fn):
 def lm_params_from_reference(params_np: Params, cfg: TransformerConfig,
                              device="cuda",
                              dtype: torch.dtype = torch.float32) -> Params:
-    """{"embed", "layers" (stacked), "ln_final", "lm_head"?} of numpy
-    arrays -> the port's parameters in ``dtype`` on ``device``."""
-    _check_dense(cfg)
-    if "dense_layers" in params_np:
-        raise NotImplementedError("a dense-prefix MoE layout is not ported")
+    """{"embed", "dense_layers"? (stacked), "layers" (stacked), "ln_final",
+    "lm_head"?} of numpy arrays -> the port's parameters in ``dtype`` on
+    ``device``."""
     dev = resolve_device(device)
     out: Params = {k: _tensor(v, dtype, dev) for k, v in params_np.items()
-                   if k != "layers"}
-    stacked = params_np["layers"]
-    out["layers"] = [_tree(stacked, lambda a, i=i: _tensor(a[i], dtype, dev))
-                     for i in range(cfg.n_layers)]
+                   if k not in ("layers", "dense_layers")}
+    out["layers"] = []
+    for group in ("dense_layers", "layers"):
+        if group not in params_np:
+            continue
+        stacked = params_np[group]
+        n = len(next(leaves(stacked)))
+        out["layers"] += [
+            _tree(stacked, lambda a, i=i: _tensor(a[i], dtype, dev))
+            for i in range(n)]
+    if len(out["layers"]) != cfg.n_layers:
+        raise ValueError(f"{cfg.name}: {len(out['layers'])} layers in the "
+                         f"reference's parameters, not {cfg.n_layers}")
     return out

@@ -1,0 +1,173 @@
+"""Mixture-of-Experts FFN with scatter-based token dispatch (port of
+:mod:`repro.models.moe`).
+
+Covers the two MoE archs of the zoo:
+  * qwen3-moe-30b-a3b : 128 routed experts, top-8, expert d_ff=768, no shared
+  * deepseek-v2-lite  : 64 routed experts, top-6, 2 shared experts, d_ff=1408
+
+Each token's slot in its expert comes from a token-major cumsum over the
+(T * k, E) assignment one-hot; tokens are scattered into (E, cap, D) expert
+buffers and the expert FFNs are one batched matmul over experts.  An
+assignment past its expert's capacity is dropped (GShard semantics,
+capacity_factor 1.0) and contributes 0; its residual stream passes
+through.  Routing takes its top-k through :func:`repro_torch.kernels.ops.topk`
+on the negated probabilities: ties go to the lower expert id as
+``jax.lax.top_k`` sends them, through ``topk_ref`` on the CPU and the
+``topk`` kernel on the card.
+
+The reference's ``moe_apply_expert_parallel`` (its ``_expert_parallel_ok``
+and ``_axis_size``) is a ``shard_map`` all-to-all schedule over a TPU
+mesh; it has no counterpart on one card.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+from repro_torch.models import layers
+from repro_torch.models.layers import dense_init
+
+Params = dict[str, Any]
+
+
+@dataclasses.dataclass(frozen=True)
+class MoeConfig:
+    d_model: int
+    n_experts: int
+    top_k: int
+    d_expert: int            # per-expert FFN hidden size
+    n_shared: int = 0        # DeepSeek shared experts
+    d_shared: int = 0        # shared-expert hidden size (d_expert if 0)
+    capacity_factor: float = 1.0
+    router_noise: float = 0.0
+
+    @property
+    def shared_hidden(self) -> int:
+        return self.d_shared or self.d_expert
+
+
+def moe_init(generator: torch.Generator | None, cfg: MoeConfig, *,
+             dtype=torch.float32, device="cuda") -> Params:
+    dev = layers.init_device(device)
+    kw = dict(dtype=dtype, device=dev)
+    e, d, f = cfg.n_experts, cfg.d_model, cfg.d_expert
+
+    def experts(shape, fan_in):
+        w = torch.randn(shape, generator=generator, **kw)
+        return w.mul_((1.0 / fan_in) ** 0.5)
+
+    p = {"router": dense_init(generator, d, e, scale=0.02, **kw),
+         "w_gate": experts((e, d, f), d),
+         "w_up": experts((e, d, f), d),
+         "w_down": experts((e, f, d), f)}
+    if cfg.n_shared:
+        fs = cfg.shared_hidden * cfg.n_shared
+        p["shared"] = {"w_gate": dense_init(generator, d, fs, **kw),
+                       "w_up": dense_init(generator, d, fs, **kw),
+                       "w_down": dense_init(generator, fs, d, **kw)}
+    return p
+
+
+def _route(p: Params, cfg: MoeConfig, x_flat: torch.Tensor):
+    """Token-choice top-k routing. Returns (expert_idx (T, k) int32, gate
+    (T, k) float32 normalised by max(sum, 1e-9), router_probs (T, E) for
+    the aux loss)."""
+    logits = (x_flat @ p["router"]).float()                    # (T, E)
+    probs = torch.softmax(logits, dim=-1)
+    neg_p, top_e = ops.topk(-probs, cfg.top_k)                 # (T, k)
+    top_p = -neg_p
+    top_p = top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9)
+    return top_e, top_p, probs
+
+
+def load_balance_loss(router_probs: torch.Tensor, expert_idx: torch.Tensor,
+                      n_experts: int) -> torch.Tensor:
+    """Switch-Transformer aux loss: E * sum_e f_e * P_e."""
+    onehot = F.one_hot(expert_idx[:, 0].long(), n_experts).float()
+    f = onehot.mean(0)                      # fraction of tokens -> expert
+    pmean = router_probs.mean(0)            # mean router prob
+    return n_experts * torch.sum(f * pmean)
+
+
+def _dispatch_group(x_g: torch.Tensor, expert_idx_g: torch.Tensor, cap: int,
+                    n_experts: int):
+    """One group's scatter-dispatch. x_g (tg, D); expert_idx_g (tg, k).
+
+    Returns (buf (E, cap, D), dest (tg*k,) int32, keep (tg*k,) bool): the
+    slot of an assignment is its position in a token-major cumsum over the
+    flat assignments; an assignment at slot >= cap is dropped (its dest is
+    the discarded row E * cap).
+    """
+    tg, d = x_g.shape
+    k = expert_idx_g.shape[1]
+    flat_e = expert_idx_g.reshape(tg * k).long()
+    onehot = F.one_hot(flat_e, n_experts).to(torch.int32)
+    pos = torch.cumsum(onehot, dim=0, dtype=torch.int32) - 1
+    slot = pos.gather(1, flat_e[:, None])[:, 0]
+    keep = slot < cap
+    dest = torch.where(keep, flat_e.to(torch.int32) * cap + slot,
+                       torch.full_like(slot, n_experts * cap))
+    src = x_g.repeat_interleave(k, dim=0)
+    buf = torch.zeros((n_experts * cap + 1, d), dtype=x_g.dtype,
+                      device=x_g.device).index_add_(0, dest, src)
+    return buf[:-1].reshape(n_experts, cap, d), dest, keep
+
+
+def moe_apply(p: Params, cfg: MoeConfig, x: torch.Tensor,
+              no_drop: bool = False,
+              n_groups: int | None = None) -> tuple[torch.Tensor,
+                                                    torch.Tensor]:
+    """x: (B, S, D) -> (out (B, S, D), aux_loss scalar).
+
+    Dispatch is group-local (GShard semantics): the T tokens split into
+    ``n_groups`` groups (default 1; halved until it divides T), each
+    scattered into its own (E, cap, D) buffer.  ``cap`` is
+    max(int(capacity_factor * tg * k / E), 1) for groups of tg tokens, or
+    tg under ``no_drop`` (decode: nothing is dropped, so serving is
+    deterministic).  The combine multiplies each expert output by its gate
+    cast to x's dtype and sums over k; shared experts are added after.
+    """
+    b, s, d = x.shape
+    t = b * s
+    n_groups = n_groups or 1
+    while t % n_groups != 0:
+        n_groups //= 2  # batch=1 decode etc: fall back to fewer groups
+    tg = t // n_groups
+    e, k = cfg.n_experts, cfg.top_k
+
+    x_flat = x.reshape(t, d)
+    expert_idx, gate, router_probs = _route(p, cfg, x_flat)
+    aux = load_balance_loss(router_probs, expert_idx, e)
+    cap = tg if no_drop else max(int(cfg.capacity_factor * tg * k / e), 1)
+
+    x_g = x_flat.reshape(n_groups, tg, d)
+    eid_g = expert_idx.reshape(n_groups, tg, k)
+    groups = [_dispatch_group(x_g[i], eid_g[i], cap, e)
+              for i in range(n_groups)]
+    buf = torch.stack([g[0] for g in groups])             # (G, E, cap, D)
+
+    # Expert FFNs batched over (group, expert).
+    h = F.silu(buf @ p["w_gate"]) * (buf @ p["w_up"])
+    out_buf = h @ p["w_down"]                              # (G, E, cap, D)
+
+    # Gather back within each group; dropped slots contribute 0.
+    gate_g = gate.reshape(n_groups, tg, k)
+    combined = []
+    for i, (_, dest, keep) in enumerate(groups):
+        flat = out_buf[i].reshape(e * cap, d)
+        gathered = torch.where(keep[:, None],
+                               flat[dest.clamp_max(e * cap - 1).long()],
+                               torch.zeros((), dtype=flat.dtype,
+                                           device=flat.device))
+        combined.append((gathered.reshape(tg, k, d)
+                         * gate_g[i][..., None].to(flat.dtype)).sum(1))
+    out = torch.cat(combined).reshape(t, d)
+
+    if cfg.n_shared:
+        sp = p["shared"]
+        out = out + layers.swiglu(sp, x_flat)
+    return out.reshape(b, s, d).to(x.dtype), aux

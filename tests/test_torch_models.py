@@ -308,17 +308,18 @@ def test_full_width_shapes_match_reference(jx):
 
 
 def test_unported_configs_raise():
-    for kw in ({"moe": object()}, {"attention": "mla"}):
-        cfg = dataclasses.replace(tq.SMOKE_CONFIG, **kw)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-            tt.init_lm(cfg, None, device="meta")
-        with pytest.raises(NotImplementedError):
-            tt.init_cache(cfg, 1, 8, device="cpu")
-        with pytest.raises(NotImplementedError):
-            tt.decode_step(cfg, {}, {}, torch.zeros(1, 1).long(),
-                           torch.zeros(1).int())
-        with pytest.raises(NotImplementedError):
-            tt.prefill(cfg, {}, torch.zeros(1, 4).long())
+    """Every attention the reference has is ported; an unknown one raises
+    ValueError from each entry point, before any work."""
+    cfg = dataclasses.replace(tq.SMOKE_CONFIG, attention="linear")
+    with pytest.raises(ValueError, match="unknown attention 'linear'"):
+        tt.init_lm(cfg, None, device="meta")
+    with pytest.raises(ValueError):
+        tt.init_cache(cfg, 1, 8, device="cpu")
+    with pytest.raises(ValueError):
+        tt.decode_step(cfg, {}, {}, torch.zeros(1, 1).long(),
+                       torch.zeros(1).int())
+    with pytest.raises(ValueError):
+        tt.prefill(cfg, {}, torch.zeros(1, 4).long())
 
 
 def test_config_registry():
@@ -326,8 +327,22 @@ def test_config_registry():
     assert spec.config is tq.CONFIG and spec.smoke_config is tq.SMOKE_CONFIG
     assert spec.cell("decode_32k").meta == {"seq": 32768, "batch": 128}
     assert spec.cell("long_500k").meta == {"seq": 524288, "batch": 1}
+    archs = tbase.all_archs()
+    lm = {"qwen2-7b", "deepseek-coder-33b", "minicpm-2b",
+          "qwen3-moe-30b-a3b", "deepseek-v2-lite-16b"}
+    mcgi = {"mcgi-sift1m", "mcgi-glove100", "mcgi-gist1m", "mcgi-sift1b",
+            "mcgi-t2i1b"}
+    assert set(archs) == lm | mcgi
+    for name, a in archs.items():
+        assert a.family == ("lm" if name in lm else "mcgi")
+        assert a.smoke_config.name.endswith("-smoke")
+        assert a.smoke_config.name != a.config.name
+    sift = archs["mcgi-sift1m"]
+    assert sift.smoke_config.n == 4096 and sift.smoke_config.d == 64
+    assert [(c.name, c.kind, c.meta) for c in sift.shapes] == [
+        ("serve", tbase.MCGI_SEARCH, {"queries": 4096, "k": 10})]
     with pytest.raises(KeyError):
-        tbase.get("qwen3-moe-30b-a3b")
+        tbase.get("bert4rec")
     with pytest.raises(ValueError):
         tbase.register(spec)
 
