@@ -37,14 +37,19 @@ Phases, each printed on its own lines; any failure exits non-zero:
    rows with ties, +inf and NaN, and at [adc]'s chunk shape (256 x 1M,
    k = 10 and 100), and at the MoE routers' shapes (1024 tokens x 64
    experts, k = 6; x 128, k = 8; negated softmax probabilities with a
-   uniform row, a row of three levels and a row of -0.0), each timed:
-   values bitwise and ids exactly equal;
+   uniform row, a row of three levels and a row of -0.0) and at the
+   training router's (train_4k's 4,096 tokens x 64 experts, k = 6, the
+   same planted rows), each timed: values bitwise and ids exactly equal,
+   and at the training router's shape the value gradient of ``ops.topk``
+   equal to the plain version's (a gather at ``topk_ref``'s ids) bit for
+   bit;
    ``lid_estimate`` at 1M x 16, 1M x 1 and 100k x 100 within rtol 1e-4
    (timed at 1M x 16); ``decode_attention`` at
-   qwen2-7b's heads (28 query, 4 KV, d=128, bfloat16 cache) at
-   [lm-serve]'s shape (B=8, S=160), at the ``decode_32k`` shape with batch
-   cut to 16 and at the ``long_500k`` shape, and at the zoo's other GQA
-   heads (32 / 4 / 128, 56 / 8 / 128, 36 / 36 / 64) at [lm-serve]'s shape,
+   qwen2-7b's heads (28 query, 4 KV, d=128, bfloat16 cache) at the
+   serving shape B=8, S=160 (8 prompts, 128 + 32 tokens), at the
+   ``decode_32k`` shape with batch cut to 16 and at the ``long_500k``
+   shape, and at the zoo's other GQA
+   heads (32 / 4 / 128, 56 / 8 / 128, 36 / 36 / 64) at that shape,
    ragged kv_len including 0, 1 and S, within 3e-4; ``pq_scan`` at
    (256, 16, 256) LUTs x (1M, 16) codes, bit for bit on integer-valued LUTs
    and within 1e-5 on float LUTs, timed on random codes and on all-zero
@@ -162,14 +167,15 @@ Phases, each printed on its own lines; any failure exits non-zero:
    990,000 rows (``build_online_mcgi``: the bootstrap through
    ``l2_distance`` + ``topk``, the rewire walks through ``beam_step``
    exact; a PQ tier; a block store of 4 records a page in a temporary
-   directory; the budget law of phase 3), the stream served one
-   ``LiveIndex.search`` a batch; the last 10,000 rows inserted in 10 calls
-   of 1,000, each then found at rank 0 with d2 = 0, and the stream served
-   against phase 3's ground truth; 10,000 base ids tombstoned (drawn from
-   --seed), the stream served and walked by ``DeltaTier.search_exact``;
-   ``merge_async`` while the main thread serves the stream at half its
-   closed-loop load; the stream at
-   the merge boundary; ``save`` and ``load_lineage``.  Fails if a deleted
+   directory; the budget law of phase 3), the stream's first 5 batches
+   served one ``LiveIndex.search`` a batch (each stage serves these 5 of
+   the 10 batches, a cut for time, printed); the last 10,000
+   rows inserted in 10 calls of 1,000, each then found at rank 0 with
+   d2 = 0, and the stage served against phase 3's ground truth; 10,000
+   base ids tombstoned (drawn from --seed), the stage served and the whole
+   stream walked by ``DeltaTier.search_exact``; ``merge_async`` while the
+   main thread serves the stream at half its closed-loop load; the stage
+   at the merge boundary; ``save`` and ``load_lineage``.  Fails if a deleted
    id is returned before, during or after the merge, an inserted vector
    is not its own rank-0 result with d2 = 0 right after its insert, one
    the walk finds after the merge (at least 90% of them: no delta scan
@@ -252,12 +258,13 @@ Phases, each printed on its own lines; any failure exits non-zero:
    cache emptied between models.  qwen2-7b
    (``repro_torch/configs/qwen2_7b.py``: 28 layers, d_model 3584, 28 query
    and 4 KV heads, d_ff 18944, vocab 152064, QKV bias):
-   [lm-serve] 8 prompts of 128 tokens teacher-forced through
-   ``decode_step`` into a cache of 160, then greedy generation to 32
-   tokens a row; ``prefill(prompts)``'s last logits against the decode
-   path's at position 127 within a relative L2 error of 5e-2;
-   ``decode_attention``'s outputs at layer 0 of steps 0, 127 and 158
-   within 3e-4 of its plain version on the same tensors; a second run
+   [lm-serve] 8 prompts of 32 tokens teacher-forced through
+   ``decode_step`` into a cache of 40, then greedy generation to 8 tokens
+   a row (cut from 128 and 32 for time, printed);
+   ``prefill(prompts)``'s last logits against the decode path's at
+   position 31 within a relative L2 error of 5e-2;
+   ``decode_attention``'s outputs at layer 0 of steps 0, 31 and 38 within
+   3e-4 of its plain version on the same tensors; a second run
    must generate identical tokens; tokens/s, the step's p50 / p99 against
    its bound, aten calls a step;
    [lm-decode_32k] (B=16 of the cell's 128, S=32768) and [lm-long_500k]
@@ -268,7 +275,8 @@ Phases, each printed on its own lines; any failure exits non-zero:
    step on each path.  Then the rest of the zoo:
    [lm-dsv2-serve] deepseek-v2-lite-16b (27 layers, MLA with a 512 + 64
    latent cache, 64 routed experts top-6 + 2 shared, the first layer
-   dense; 15,706,484,224 parameters) at [lm-serve]'s shape, MLA absorbed;
+   dense; 15,706,484,224 parameters) at 8 prompts of 128 tokens, greedy
+   to 32 (a cache of 160), MLA absorbed;
    at steps 0, 127 and 158 of the second run the naive form on a copy of
    the cache, within 5e-2 relative L2 of the absorbed logits with the
    absorbed step's experts replayed (the figure without the replay and
@@ -291,6 +299,39 @@ Phases, each printed on its own lines; any failure exits non-zero:
    ``n_layers`` times a step and its layer-0 outputs within 3e-4 of the
    plain version at two steps; the two dense ones hold prefill against
    decode within 5e-2 in bfloat16, qwen3-moe as deepseek-v2-lite does;
+4b. the training paths (``repro_torch.training``, ``transformer.lm_loss``),
+   each through ``make_train_step`` with float32 master weights drawn
+   from --seed on the card, bfloat16 compute, each layer checkpointed
+   (remat: ``forward`` checkpoints whenever autograd records), the optimizer
+   config ``launch/train.py`` picks (``train_config``) and train_4k's
+   sequence, S = 4096.  [lm-train] minicpm-2b at full width and depth (40
+   layers, 2,725,173,504 parameters) at batch TRAIN_BATCH (cut from
+   train_4k's 256: the largest power of two measured to fit; printed as a
+   cut), TRAIN_STEPS steps of the WSD schedule: fails unless loss, ce and
+   grad_norm are finite at every step, lr equals ``schedule_fn``'s value
+   and the mean loss of the last two steps is below the first step's;
+   prints step p50 / p99, tokens/s, the optimizer update's ms (CUDA
+   events), peak ``max_memory_allocated``, the state's bytes and the
+   model-FLOP share at 989 TFLOP/s bf16, its count written out (6 N a
+   token, N the parameters a token multiplies: an MoE layer's top_k of
+   its routed experts, an untied input embedding left out).
+   [lm-train-moe] deepseek-v2-lite-16b at full width, its depth cut from
+   27 to 4 (the dense first layer and 3 MoE layers; printed as a cut),
+   batch 1, 8 steps of the cosine schedule (the launcher's warmup of 5):
+   fails unless the metrics are finite, lr the schedule's, ``topk``
+   launched twice a MoE layer a step (the forward and remat's recompute:
+   6 a step) and, on a float32 copy of MoE layer 1 at 4,096 tokens, the
+   router's gradient of the layer's output alone (aux_loss_weight = 0)
+   through the kernel is within 1e-5 relative L2 of the one through
+   ``topk_ref`` and non-zero; prints the curves of loss, ce, aux and
+   grad_norm and the share of assignments the published capacity factor
+   drops, then the same for two witness runs from the same weights:
+   float32 compute on the same batches, and bfloat16 on uniform token
+   ids (no Zipfian repeats).
+   [examples-train] ``examples/torch_train_lm.py``'s ``main`` for 100
+   steps: fails unless the loss improved and the step-100 checkpoint
+   restores equal to the saved state bit for bit; prints tokens/s.  Each
+   phase prints its seconds;
 5. the kernels line (launches of each kernel on every path), then one JSON
    object per the port's contract, and the device line last.
 
@@ -359,13 +400,21 @@ ADC_K = 10
 ADC_K_WIDE = 100                         # recall@100's k
 TOPK_K_RADIX = 2048                      # a k past the warp-select's 256
 ROUTER_TOKENS = 1024                     # phase 2: the MoE routers' topk
+ROUTER_TRAIN_TOKENS = 4096               # and the training router's (train_4k)
 # Instructions of IEEE sqrtf + division + logf an element, counted as
 # float32 operations for lid_estimate's bound.
 LID_OPS_PER_ELEMENT = 40
+# Phase 2's decode_attention serving shape: 8 rows, a cache of 128 prompt
+# and 32 generated tokens ([lm-serve]'s shape before its cut below).
 LM_BATCH, LM_PROMPT, LM_GEN = 8, 128, 32
-# [lm-serve] steps whose layer-0 decode_attention is held to the plain
-# version: the first, the last teacher-forced and the last generated.
+# [lm-serve] (qwen2-7b) cut to 32 + 8 tokens a row (time: the training
+# phases); [lm-dsv2-serve] keeps 128 + 32.
+SERVE_PROMPT, SERVE_GEN = 32, 8
+# Steps whose layer-0 decode_attention (and MLA's naive form) is held to
+# the plain version: the first, the last teacher-forced and the last
+# generated; [lm-serve]'s at its cut shape.
 LM_CHECK_STEPS = (0, LM_PROMPT - 1, LM_PROMPT + LM_GEN - 2)
+SERVE_CHECK_STEPS = (0, SERVE_PROMPT - 1, SERVE_PROMPT + SERVE_GEN - 2)
 # Prefill vs decode logits in bfloat16: the CPU tests see 1.2e-2 relative
 # L2 between the two frameworks over 2 layers; 28 layers get the most the
 # check allows.
@@ -389,6 +438,10 @@ MLA_FORM_REL_L2 = 5e-2
 F32_LAYERS = 4                         # MoE prefill gate: a float32 copy
 LIVE_INSERTS, LIVE_INSERT_CALLS = 10_000, 10     # [live]: the last 10k rows
 LIVE_DELETES = 10_000
+# [live]'s four stages each serve the stream's first 5 batches (5,000
+# queries; cut from all 10 for time); the merge's traffic and
+# the self-queries are not cut.
+LIVE_STAGE_BATCHES = 5
 LIVE_RECALL_FLOOR = 0.75
 LIVE_SELF_FLOOR = 0.9     # self-queries the walk finds after the merge
 LIVE_MERGE_DUTY = 0.5     # share of the merge's time spent serving
@@ -1113,7 +1166,8 @@ def check_bulk_kernels(dev, seed: int) -> list[dict]:
                  (t["bound_ms"], t["bound_by"]),
                  "values bitwise, ids equal (k = 10, 17, 100, 101, "
                  f"{TOPK_K_RADIX}; the routers' 1024 x 64, k = 6 and "
-                 f"1024 x 128, k = 8)")
+                 f"1024 x 128, k = 8; the training router's 4096 x 64, "
+                 f"k = 6, its value gradient too)")
     # Past the 64-key list: recall@100's k (and 101, as a k-NN asks for
     # k + 1) at the k-NN shape, and the radix select past 256 on a few
     # rows: planted ties, a row of 5 finite entries padded by +inf, NaN.
@@ -1128,6 +1182,7 @@ def check_bulk_kernels(dev, seed: int) -> list[dict]:
     rec["adc_shape"] = topk_adc_shape(dev, g, cfg.d)
     rec["large_k"] = wide
     rec["router"] = topk_router_shapes(dev, g)
+    rec["train_router"] = topk_train_router(dev, g)
     out.append(rec)
 
     # lid_estimate on 1M ascending k=16 rows, duplicates included.
@@ -3015,6 +3070,10 @@ def live_path(world, tmp: str, card: str, seed: int,
         return [gt[s:s + b.shape[0]] for s, b in zip(
             np.cumsum([0] + [b.shape[0] for b in batches[:-1]]), batches)]
 
+    stage = batches[:LIVE_STAGE_BATCHES]
+    log(f"[live] cut for time: each stage serves {len(stage)} of the "
+        f"stream's {len(batches)} batches")
+
     ops.reset_launch_counts()
     bcfg = build.BuildConfig(degree=cfg.degree, beam_width=cfg.l_build,
                              alpha_min=cfg.alpha_min,
@@ -3047,7 +3106,7 @@ def live_path(world, tmp: str, card: str, seed: int,
         gt0 = uncounted(lambda: live_gt(x, np.arange(n_base), qn, cfg.k))
         live.search(qn[:64])                                # warm-up
         runs = {"base": live_serve("base, 990k-row index" if n_base ==
-                                   990_000 else "base", live, batches,
+                                   990_000 else "base", live, stage,
                                    split(gt0), None, card)}
 
         # Inserts: the last rows, in LIVE_INSERT_CALLS calls.
@@ -3092,7 +3151,7 @@ def live_path(world, tmp: str, card: str, seed: int,
             f"inserted vectors found at rank 0 with d2 = 0")
         runs["inserted"] = live_serve(
             "after inserts (live = phase 3's 1M rows; phase 3's ground "
-            "truth)", live, batches, gts, None, card)
+            "truth)", live, stage, gts, None, card)
 
         # Deletes: base external ids from the seed.
         gone = np.sort(rng.choice(n_base, deletes, replace=False))
@@ -3102,7 +3161,7 @@ def live_path(world, tmp: str, card: str, seed: int,
             f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
         alive = np.setdiff1d(np.arange(n), gone)
         gt1 = uncounted(lambda: live_gt(x, alive, qn, cfg.k))
-        runs["deleted"] = live_serve("after deletes", live, batches,
+        runs["deleted"] = live_serve("after deletes", live, stage,
                                      split(gt1), gone, card)
         st = live._state
         recalls, t0 = [], time.perf_counter()
@@ -3190,7 +3249,7 @@ def live_path(world, tmp: str, card: str, seed: int,
             f"{hit.size} inserted vectors found at rank 0 with d2 = 0 by the "
             f"walk (no delta scan at a merge boundary), each under its "
             f"external id from before the merge")
-        runs["merged"] = live_serve("at the merge boundary", live, batches,
+        runs["merged"] = live_serve("at the merge boundary", live, stage,
                                     split(gt1), gone, card)
         npz = os.path.join(tmp, "live.npz")
         live.save(npz)
@@ -4372,11 +4431,14 @@ def lm_paths(dev, seed: int) -> tuple[dict, float]:
     from repro_torch.configs import base
 
     out = {}
+    log(f"[lm] cut for time (the training phases): [lm-serve] prompts "
+        f"{LM_PROMPT} -> {SERVE_PROMPT} tokens, generation {LM_GEN} -> "
+        f"{SERVE_GEN}")
     cfg = qwen2()
     params = lm_params(cfg, dev, seed, 505)
     out["lm-serve"], attn_err = lm_serve(
-        cfg, params, dev, seed, "lm-serve", LM_PROMPT, LM_GEN,
-        LM_CHECK_STEPS, 606)
+        cfg, params, dev, seed, "lm-serve", SERVE_PROMPT, SERVE_GEN,
+        SERVE_CHECK_STEPS, 606)
     torch.cuda.empty_cache()
     for cell, b, s in LM_CELLS:
         full_b = base.get("qwen2-7b").cell(cell).meta["batch"]
@@ -4408,6 +4470,440 @@ def lm_paths(dev, seed: int) -> tuple[dict, float]:
         torch.cuda.empty_cache()
         log(f"[lm-{tag}] phase {time.perf_counter() - t_phase:.1f} s")
     return out, attn_err
+
+
+# ------------------------------------------------------- phase 4: training
+
+TRAIN_CELL = "train_4k"                # S = 4096 (configs/base.py)
+# [lm-train]'s batch, cut from train_4k's 256: the largest power of two
+# that fits minicpm-2b's float32 state (43.6 GB) on one 80 GB card.
+TRAIN_BATCH = 2
+TRAIN_STEPS = 8
+TRAIN_LR = 3e-4                        # launch/train.py's default
+# [lm-train-moe]: deepseek-v2-lite's depth cut from 27 to its dense first
+# layer and 3 MoE layers (the full depth's 251 GB of state does not fit).
+# 8 steps: the launcher's warmup of 5, then 3 of the cosine decay.
+TRAIN_MOE_LAYERS, TRAIN_MOE_BATCH, TRAIN_MOE_STEPS = 4, 1, 8
+ROUTER_GRAD_REL_L2 = 1e-5
+EXAMPLE_TRAIN_STEPS = 100
+
+
+def topk_plain_grad(x, k: int):
+    """``topk_ref``'s ids, and its values as a gather from ``x`` (the same
+    values), so autograd differentiates them: the plain version of
+    ``ops.topk`` with its value gradient."""
+    import torch
+
+    from repro_torch.kernels import ref
+
+    with torch.no_grad():
+        _, ids = ref.topk_ref(x, k)
+    return x.gather(1, ids.long()), ids
+
+
+def topk_train_router(dev, g) -> dict:
+    """``topk`` at the training router's shape: train_4k's 4,096 tokens x
+    64 experts (deepseek-v2-lite), k = 6, on negated softmax probabilities
+    with planted ties (a uniform row, a row of three levels, a row of
+    zeros): values and ids bit-identical to ``topk_ref``, and the value
+    gradient (``ops.topk``'s backward) equal bit for bit to the plain
+    version's (:func:`topk_plain_grad`); timed."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    e, k = 64, 6
+    probs = torch.softmax(torch.randn((ROUTER_TRAIN_TOKENS, e), generator=g,
+                                      device=dev) * 2, dim=-1)
+    probs[0] = 1.0 / e
+    levels = torch.randint(0, 3, (e,), generator=g, device=dev).float()
+    probs[1] = (levels + 1) / (levels + 1).sum()
+    probs[2] = 0.0
+    out = topk_timed(-probs, k, f"training router, {e} experts")
+    w = torch.randn((ROUTER_TRAIN_TOKENS, k), generator=g, device=dev)
+    grads = []
+    for fn in (ops.topk, topk_plain_grad):
+        x = (-probs).requires_grad_(True)
+        vals, _ = fn(x, k)
+        grads.append(torch.autograd.grad((vals * w).sum(), x)[0])
+    sync(dev)
+    if not torch.equal(grads[0], grads[1]):
+        raise AssertionError("topk's value gradient at the training "
+                             "router's shape differs from the plain "
+                             "version's")
+    log(f"[phase2] topk {ROUTER_TRAIN_TOKENS}x{e} k={k} (training router): "
+        f"value gradient equal bit for bit to the plain version's (a "
+        f"gather at topk_ref's ids; {int((grads[0] != 0).sum())} non-zero "
+        f"entries)")
+    out["value_grad"] = "bit-identical"
+    return out
+
+
+def train_loop(state, step_fn, data, steps: int, sched, tag: str):
+    """``steps`` calls of ``step_fn``, each between two synchronises:
+    (step ms, metrics as floats, the optimizer update's ms from CUDA
+    events around ``adamw_update``).  Fails unless loss, ce and grad_norm
+    are finite at every step and lr is ``sched``'s value."""
+    import math
+
+    import torch
+
+    from repro_torch.training import optimizer as opt_mod
+
+    events, real = [], opt_mod.adamw_update
+
+    def timed(*args):
+        ev = (torch.cuda.Event(True), torch.cuda.Event(True))
+        ev[0].record()
+        out = real(*args)
+        ev[1].record()
+        events.append(ev)
+        return out
+
+    step_ms, rows = [], []
+    opt_mod.adamw_update = timed
+    try:
+        for i in range(steps):
+            batch = next(data)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step_fn(state, batch)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            rows.append({k: float(v) for k, v in m.items()})
+    finally:
+        opt_mod.adamw_update = real
+    for i, r in enumerate(rows):
+        if not all(math.isfinite(r[k]) for k in ("loss", "ce",
+                                                 "grad_norm")):
+            raise AssertionError(f"[{tag}] step {i + 1}: non-finite "
+                                 f"metrics {r}")
+        want = float(sched(i + 1))
+        if r["lr"] != want:
+            raise AssertionError(f"[{tag}] step {i + 1}: lr {r['lr']!r}, "
+                                 f"the schedule gives {want!r}")
+    upd_ms = [a.elapsed_time(b) for a, b in events]
+    return state, step_ms, rows, upd_ms
+
+
+def state_bytes(state) -> int:
+    from repro_torch.training import optimizer as opt_mod
+
+    return sum(t.numel() * t.element_size()
+               for _, t in opt_mod.flatten(state))
+
+
+def uniform_batches(vocab: int, batch: int, seq: int, seed: int, dev):
+    """LmBatches' layout with token ids uniform over the vocabulary (no
+    Zipfian repeats), drawn on the card."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    while True:
+        toks = torch.randint(0, vocab, (batch, seq + 1), generator=g,
+                             device=dev)
+        yield {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+def train_setup(spec, cfg, dev, seed: int, salt: int, steps: int,
+                batch: int, uniform: bool = False):
+    """Float32 master weights drawn from the seed on the card, the
+    launcher's optimizer config for the arch, its train step and a data
+    stream (LmBatches' Zipfian draws, or :func:`uniform_batches`):
+    (state, step_fn, data, schedule, opt_cfg)."""
+    import torch
+
+    from repro_torch.launch import train as train_launch
+    from repro_torch.models import transformer
+    from repro_torch.training import optimizer as opt_mod
+    from repro_torch.training import train_step as ts_mod
+    from repro_torch.training.data import LmBatches
+
+    g = torch.Generator(device=dev).manual_seed(seed + salt)
+    params = transformer.init_lm(cfg, g, device=dev, dtype=torch.float32)
+    opt_cfg = train_launch.train_config(spec.arch_id, TRAIN_LR, steps)
+    step_fn = ts_mod.make_train_step(
+        lambda p, b: transformer.lm_loss(cfg, p, b), opt_cfg)
+    state = ts_mod.init_train_state(params)
+    s = spec.cell(TRAIN_CELL).meta["seq"]
+    if uniform:
+        data = uniform_batches(cfg.vocab, batch, s, seed + salt, dev)
+    else:
+        data = iter(LmBatches(cfg.vocab, batch, s, seed=seed + salt,
+                              device=str(dev)))
+    return state, step_fn, data, opt_mod.schedule_fn(opt_cfg), opt_cfg
+
+
+def train_flops(cfg, b: int, s: int) -> tuple[float, str]:
+    """Model FLOPs of one train step: 6 N per token, N the parameters a
+    token multiplies (``n_active_params``: an MoE layer's top_k of its
+    routed experts; an untied input embedding, a lookup, left out), plus
+    the blockwise attention's full S x S blocks (every key chunk is
+    computed, masked or not): QK^T and PV, 2 x 2 B H S^2 d forward, three
+    times that with backward, in every layer (remat's recompute not
+    counted)."""
+    active = cfg.n_active_params()
+    emb = 0 if cfg.tie_embeddings else cfg.vocab * cfg.d_model
+    n = active - emb
+    if cfg.attention == "mla":
+        dqk = cfg.mla.qk_nope_dim + cfg.mla.qk_rope_dim
+        dv = cfg.mla.v_head_dim
+    else:
+        dqk = dv = cfg.d_head
+    h = cfg.n_heads
+    dense = 6 * n * b * s
+    attn = 3 * 2 * b * h * s * s * (dqk + dv) * cfg.n_layers
+    return dense + attn, (f"6 x ({active} active - {emb} input embedding) "
+                          f"x {b * s} + 3 x 2 x {b} x {h} x {s}^2 x "
+                          f"({dqk} + {dv}) x {cfg.n_layers} = "
+                          f"{(dense + attn) / 1e12:.2f} TFLOP")
+
+
+def lm_train(dev, card: str, seed: int) -> dict:
+    """[lm-train]: minicpm-2b at full width and depth (40 layers,
+    2,725,173,504 parameters) trained through ``make_train_step`` at
+    train_4k's sequence, the batch cut to TRAIN_BATCH: float32 master
+    weights from the seed, bfloat16 compute, remat on, the WSD schedule
+    as ``launch/train.py`` picks it, TRAIN_STEPS steps.  Fails unless
+    loss, ce and grad_norm are finite at every step, lr equals
+    ``schedule_fn``'s value and the mean loss of the last two steps is
+    below the first step's.  Returns the launch counts."""
+    import torch
+
+    from repro_torch.configs import base
+    from repro_torch.kernels import ops
+
+    t_phase = time.perf_counter()
+    spec = base.get("minicpm-2b")
+    cfg = spec.config
+    cell = spec.cell(TRAIN_CELL).meta
+    s = cell["seq"]
+    log(f"[lm-train] batch cut: {cell['batch']} -> {TRAIN_BATCH} (train_4k "
+        f"at S={s}; the float32 weights, gradients and AdamW moments "
+        f"alone take {16 * cfg.n_params() / 1e9:.1f} GB)")
+    torch.cuda.reset_peak_memory_stats(dev)
+    state, step_fn, data, sched, opt_cfg = train_setup(
+        spec, cfg, dev, seed, 901, TRAIN_STEPS, TRAIN_BATCH)
+    held = state_bytes(state)
+    ops.reset_launch_counts()
+    state, step_ms, rows, upd_ms = train_loop(state, step_fn, data,
+                                              TRAIN_STEPS, sched, "lm-train")
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses = [r["loss"] for r in rows]
+    if not (losses[-1] + losses[-2]) / 2 < losses[0]:
+        raise AssertionError(f"[lm-train] loss did not fall: {losses}")
+    p50 = statistics.median(step_ms)
+    flops, count = train_flops(cfg, TRAIN_BATCH, s)
+    tokens = TRAIN_BATCH * s
+    log(f"[lm-train] minicpm-2b at full width and depth, {TRAIN_STEPS} "
+        f"steps of {TRAIN_BATCH}x{s} tokens ({opt_cfg.schedule}, warmup "
+        f"{opt_cfg.warmup_steps}, lr {opt_cfg.lr}; float32 master weights, "
+        f"{cfg.dtype} compute, remat on): losses "
+        f"{[round(x, 4) for x in losses]}, ce {rows[-1]['ce']:.4f}, "
+        f"grad_norm {[round(r['grad_norm'], 3) for r in rows]}, lr "
+        f"{[r['lr'] for r in rows]} (each schedule_fn's); step "
+        f"{step_stats(step_ms)}, {tokens / (p50 / 1e3):.1f} tokens/s at "
+        f"p50; optimizer update p50 {statistics.median(upd_ms):.3f} ms "
+        f"(CUDA events); peak memory {peak / 1e9:.2f} GB "
+        f"(max_memory_allocated), state {held / 1e9:.2f} GB (weights and "
+        f"moments; gradients {held / 3e9:.2f} GB more during a step); "
+        f"model FLOPs {count}: {100 * flops / (p50 / 1e3) / BF16_TC_OPS_PER_S:.2f}"
+        f"% of {BF16_TC_OPS_PER_S / 1e12:.0f} TFLOP/s bf16 at p50; {card}")
+    del state, data
+    torch.cuda.empty_cache()
+    log(f"[lm-train] phase {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
+def router_grad_check(cfg, params_moe, dev, g) -> tuple[float, float]:
+    """A float32 copy of one MoE layer at train_4k's 4,096 tokens: the
+    router's gradient of the layer's output alone (aux_loss_weight = 0),
+    with ``ops.topk`` (the kernel) and with ``topk_ref`` in its place
+    (:func:`topk_plain_grad`), on the same card tensors.  Returns
+    (relative L2 between the two, the kernel path's norm)."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe
+    from repro_torch.training import optimizer as opt_mod
+
+    p = opt_mod.tree_map(lambda t: t.detach().float().clone(), params_moe)
+    x = torch.randn((1, ROUTER_TRAIN_TOKENS, cfg.d_model), generator=g,
+                    device=dev)
+    grads, real = [], ops.topk
+    for plain in (False, True):
+        router = p["router"].clone().requires_grad_(True)
+        if plain:
+            ops.topk = topk_plain_grad
+        try:
+            out, _ = moe.moe_apply(dict(p, router=router), cfg.moe, x)
+        finally:
+            ops.topk = real
+        grads.append(torch.autograd.grad(out.square().mean(), router)[0])
+    return rel_l2(grads[0], grads[1]), float(grads[0].norm())
+
+
+def moe_run(spec, cfg, dev, seed: int, uniform: bool, tag: str):
+    """TRAIN_MOE_STEPS steps of ``cfg`` from the cell's weights (the same
+    seed and salt), on the cell's Zipfian batches or on uniform ones:
+    (state, step ms, metrics rows, update ms, the launch counts of the
+    steps (from 0), share of routed assignments the capacity factor drops
+    on the next batch, the optimizer config)."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+
+    state, step_fn, data, sched, opt_cfg = train_setup(
+        spec, cfg, dev, seed, 911, TRAIN_MOE_STEPS, TRAIN_MOE_BATCH,
+        uniform=uniform)
+    ops.reset_launch_counts()
+    state, step_ms, rows, upd_ms = train_loop(
+        state, step_fn, data, TRAIN_MOE_STEPS, sched, tag)
+    counts = ops.launch_counts()
+    tally = [0, 0]
+    with torch.no_grad(), drops_counted(tally):
+        transformer.forward(cfg, state.params, next(data)["tokens"])
+    return (state, step_ms, rows, upd_ms, counts, 1 - tally[0] / tally[1],
+            opt_cfg)
+
+
+def moe_curve(rows: list, dropped: float) -> str:
+    return (f"losses {[round(r['loss'], 4) for r in rows]}, ce "
+            f"{[round(r['ce'], 4) for r in rows]}, aux "
+            f"{[round(r['aux'], 4) for r in rows]}, grad_norm "
+            f"{[round(r['grad_norm'], 3) for r in rows]}; then "
+            f"{dropped:.4f} of routed assignments dropped")
+
+
+def lm_train_moe(dev, card: str, seed: int) -> dict:
+    """[lm-train-moe]: deepseek-v2-lite-16b at full width, depth cut to
+    TRAIN_MOE_LAYERS (the dense first layer and 3 MoE layers), train_4k's
+    sequence at batch TRAIN_MOE_BATCH, TRAIN_MOE_STEPS steps with the
+    launcher's cosine schedule.  Fails unless every step's metrics are
+    finite and its lr the schedule's, ``topk`` launched twice a MoE layer
+    a step (the forward and remat's recompute), and the router gradient
+    through the kernel in a float32 MoE layer equals the one through
+    ``topk_ref`` within ROUTER_GRAD_REL_L2 and is non-zero.  Two witness
+    runs from the same weights follow, their curves printed beside the
+    cell's: float32 compute on the same batches (bfloat16 rounding), and
+    bfloat16 on uniform token ids (the traffic's Zipfian repeats).
+    Returns the launch counts of the cell's steps."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import base
+    from repro_torch.kernels import ops
+
+    t_phase = time.perf_counter()
+    spec = base.get("deepseek-v2-lite-16b")
+    cfg = dataclasses.replace(spec.config, n_layers=TRAIN_MOE_LAYERS)
+    cell = spec.cell(TRAIN_CELL).meta
+    s = cell["seq"]
+    n_moe = TRAIN_MOE_LAYERS - cfg.first_k_dense
+    log(f"[lm-train-moe] depth cut: {spec.config.n_layers} -> "
+        f"{TRAIN_MOE_LAYERS} layers ({cfg.first_k_dense} dense, {n_moe} "
+        f"MoE; {cfg.n_params()} parameters, {16 * cfg.n_params() / 1e9:.1f}"
+        f" GB of float32 state; the full depth's "
+        f"{16 * spec.config.n_params() / 1e9:.0f} GB does not fit); batch "
+        f"cut: {cell['batch']} -> {TRAIN_MOE_BATCH}")
+    torch.cuda.reset_peak_memory_stats(dev)
+    state, step_ms, rows, upd_ms, counts, dropped, opt_cfg = moe_run(
+        spec, cfg, dev, seed, False, "lm-train-moe")
+    peak = torch.cuda.max_memory_allocated(dev)
+    want = 2 * n_moe * TRAIN_MOE_STEPS
+    if counts["topk"] != want:
+        raise AssertionError(f"[lm-train-moe] topk launched "
+                             f"{counts['topk']} times, not {want} (one a "
+                             f"MoE layer a forward, and its recompute)")
+    g = torch.Generator(device=dev).manual_seed(seed + 912)
+    rel, norm = router_grad_check(cfg, state.params["layers"][1]["moe"], dev,
+                                  g)
+    if not rel <= ROUTER_GRAD_REL_L2:
+        raise AssertionError(f"[lm-train-moe] router gradient through the "
+                             f"kernel vs topk_ref: relative L2 {rel:.3g} > "
+                             f"{ROUTER_GRAD_REL_L2}")
+    if not norm > 0:
+        raise AssertionError("[lm-train-moe] the router gets no gradient "
+                             "through the top-k values")
+    del state
+    torch.cuda.empty_cache()
+    p50 = statistics.median(step_ms)
+    flops, count = train_flops(cfg, TRAIN_MOE_BATCH, s)
+    log(f"[lm-train-moe] {TRAIN_MOE_STEPS} steps of {TRAIN_MOE_BATCH}x{s} "
+        f"tokens ({opt_cfg.schedule}, warmup {opt_cfg.warmup_steps}, lr "
+        f"{opt_cfg.lr}; float32 master weights, {cfg.dtype} compute, remat "
+        f"on; LmBatches' Zipfian ids): {moe_curve(rows, dropped)}; step "
+        f"{step_stats(step_ms)}, "
+        f"{TRAIN_MOE_BATCH * s / (p50 / 1e3):.1f} tokens/s at p50; optimizer "
+        f"update p50 {statistics.median(upd_ms):.3f} ms; peak memory "
+        f"{peak / 1e9:.2f} GB; model FLOPs {count}: "
+        f"{100 * flops / (p50 / 1e3) / BF16_TC_OPS_PER_S:.2f}% of "
+        f"{BF16_TC_OPS_PER_S / 1e12:.0f} TFLOP/s bf16 at p50; topk "
+        f"{counts['topk']} launches = {n_moe} MoE layers x 2 (forward and "
+        f"remat's recompute) x {TRAIN_MOE_STEPS} steps (the published "
+        f"capacity factor {cfg.moe.capacity_factor}); float32 MoE "
+        f"layer 1 at {ROUTER_TRAIN_TOKENS} tokens, aux_loss_weight = 0: the "
+        f"router's gradient through the kernel within relative L2 "
+        f"{rel:.3g} of topk_ref's (bound {ROUTER_GRAD_REL_L2}), norm "
+        f"{norm:.4g}; {card}")
+    witness = (("float32 compute, the same Zipfian batches",
+                dataclasses.replace(cfg, dtype=torch.float32), False),
+               (f"{cfg.dtype} compute, uniform token ids", cfg, True))
+    for what, c, uniform in witness:
+        state, _, w_rows, _, _, w_drop, _ = moe_run(
+            spec, c, dev, seed, uniform, "lm-train-moe witness")
+        del state
+        torch.cuda.empty_cache()
+        log(f"[lm-train-moe] witness, {what}, from the same weights: "
+            f"{moe_curve(w_rows, w_drop)}")
+    log(f"[lm-train-moe] phase {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
+def examples_train(card: str) -> dict:
+    """[examples-train]: ``examples/torch_train_lm.py``'s ``main`` on the
+    card for EXAMPLE_TRAIN_STEPS steps (the 100M-parameter LM, batch 8 x
+    128).  Fails unless the loss improved and the step-100 checkpoint
+    restored equal to the saved state bit for bit.  Returns the launch
+    counts."""
+    import importlib.util
+
+    from repro_torch.kernels import ops
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_train_lm", os.path.join(ROOT, "examples", "torch_train_lm.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = mod.main(["--device", "cuda", "--steps",
+                    str(EXAMPLE_TRAIN_STEPS)])
+    secs = time.perf_counter() - t0
+    if not out["improved"]:
+        raise AssertionError(f"[examples-train] the loss did not improve: "
+                             f"{out}")
+    if not (out["restored_equal"]
+            and out["restored_step"] == EXAMPLE_TRAIN_STEPS):
+        raise AssertionError(f"[examples-train] the step-"
+                             f"{EXAMPLE_TRAIN_STEPS} checkpoint did not "
+                             f"restore bit for bit: {out}")
+    log(f"[examples-train] torch_train_lm on the card, "
+        f"{EXAMPLE_TRAIN_STEPS} steps in {secs:.1f} s: loss "
+        f"{out['first_loss']:.4f} -> {out['final_loss']:.4f}, "
+        f"{out['tokens_per_s']:.1f} tokens/s, the step-"
+        f"{out['restored_step']} checkpoint restored bit for bit; {card}")
+    return ops.launch_counts()
+
+
+def train_paths(dev, card: str, seed: int) -> dict:
+    """[lm-train], [lm-train-moe] and [examples-train]: {path: launch
+    counts}."""
+    return {"lm-train": lm_train(dev, card, seed),
+            "lm-train-moe": lm_train_moe(dev, card, seed),
+            "examples-train": examples_train(card)}
 
 
 def main(argv=None) -> int:
@@ -4492,6 +4988,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     lm_counts, attn_err = lm_paths(dev, args.seed)
     paths.update(lm_counts)
+    paths.update(train_paths(dev, card, args.seed))
     for rec in kernels:
         if rec["name"] == "decode_attention":
             rec["max_abs_err"] = max(rec["max_abs_err"], attn_err)

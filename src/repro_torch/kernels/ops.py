@@ -40,13 +40,43 @@ def bulk_l2(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return _ref.l2_distance_ref(q, x)
 
 
-def topk(d: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """(Q, N) -> ((Q, k) ascending values, (Q, k) int32 ids), ties to the
-    lower id; any 1 <= k <= N on every device."""
+def _topk_forward(d: torch.Tensor, k: int):
     if _device(d, "topk").type == "cuda":
         return _topk.topk_cuda(d, k)
     _topk.check_k(k, d.shape[1])
     return _ref.topk_ref(d, k)
+
+
+class _TopK(torch.autograd.Function):
+    """The kernel (or ``topk_ref`` on the CPU) as the forward; the values'
+    gradient scattered back to their ids as the backward (``lax.top_k``'s
+    VJP, outside any kernel in the reference too).  The ids get none."""
+
+    @staticmethod
+    def forward(ctx, d, k):
+        vals, ids = _topk_forward(d, k)
+        ctx.save_for_backward(ids)
+        ctx.shape = d.shape
+        ctx.mark_non_differentiable(ids)
+        return vals, ids
+
+    @staticmethod
+    def backward(ctx, g_vals, _g_ids):
+        (ids,) = ctx.saved_tensors
+        grad = torch.zeros(ctx.shape, dtype=g_vals.dtype,
+                           device=g_vals.device)
+        return grad.scatter_add_(1, ids.long(), g_vals), None
+
+
+def topk(d: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(Q, N) -> ((Q, k) ascending values, (Q, k) int32 ids), ties to the
+    lower id; any 1 <= k <= N on every device.  Where autograd records
+    (``d`` requires grad), the values carry a gradient to ``d`` on every
+    device (the MoE router trains through them); elsewhere the kernel is
+    called directly."""
+    if torch.is_grad_enabled() and d.requires_grad:
+        return _TopK.apply(d, k)
+    return _topk_forward(d, k)
 
 
 def lid_estimate(knn_d2: torch.Tensor) -> torch.Tensor:

@@ -84,3 +84,20 @@ def swiglu_init(generator: torch.Generator | None, d: int, f: int, *,
 def swiglu(p: Params, x: torch.Tensor) -> torch.Tensor:
     g = F.silu(x @ p["w_gate"])
     return (g * (x @ p["w_up"])) @ p["w_down"]
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Token-level cross entropy in float32: logsumexp minus the gold
+    logit, averaged over the tokens ``mask`` keeps (its sum floored at 1).
+
+    logits: (..., V); labels: (...); mask broadcastable to labels (1 =
+    keep)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels[..., None].long())[..., 0]
+    nll = lse - gold
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return (nll * mask).sum() / mask.sum().clamp_min(1.0)

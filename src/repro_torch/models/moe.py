@@ -13,7 +13,11 @@ capacity_factor 1.0) and contributes 0; its residual stream passes
 through.  Routing takes its top-k through :func:`repro_torch.kernels.ops.topk`
 on the negated probabilities: ties go to the lower expert id as
 ``jax.lax.top_k`` sends them, through ``topk_ref`` on the CPU and the
-``topk`` kernel on the card.
+``topk`` kernel on the card.  The gates are the top-k values, so the
+router's gradient passes through ``ops.topk``'s value gradient on both
+devices, as it passes through ``lax.top_k`` in the reference.  Training
+(``transformer.forward``) drops assignments past ``capacity_factor``
+(``no_drop=False``); decode keeps every one.
 
 The reference's ``moe_apply_expert_parallel`` (its ``_expert_parallel_ok``
 and ``_axis_size``) is a ``shard_map`` all-to-all schedule over a TPU

@@ -14,12 +14,22 @@ float32 and casts every layer, the embedding rows and the head to
 ``cfg.dtype`` before any use, so the port may store its parameters in
 ``cfg.dtype`` directly (bfloat16 at full width) with the same results.
 
-Entry points: :func:`forward`, :func:`prefill` (last-position logits) and
-:func:`decode_step` (one token against the cache of :func:`init_cache`).
-The reference's XLA-only knobs ``remat``, ``unroll_layers``,
-``attn_unroll`` and ``skip_masked_blocks`` are left out: they choose how
-XLA schedules, unrolls or rematerialises the same computation and change
-nothing the model computes.  Training (``lm_loss``) is not ported yet.
+Entry points: :func:`lm_loss` (causal LM training loss), :func:`forward`,
+:func:`prefill` (last-position logits) and :func:`decode_step` (one token
+against the cache of :func:`init_cache`).  Whenever autograd records
+(grad enabled and any parameter or the input requiring grad), each layer
+of :func:`forward` runs under ``torch.utils.checkpoint``, as the
+reference's ``remat`` (on in every config) rematerialises it: backward
+recomputes the layer from its input, so one layer's activations are
+alive at a time, not every layer's (at minicpm-2b's width and a
+4,096-token sequence that decides whether training fits on one card).
+Serving, whose parameters need no gradient, runs the layers plainly.
+The reference's ``remat`` field, like its XLA-only knobs
+``unroll_layers``, ``attn_unroll`` and ``skip_masked_blocks``, is left
+out: they choose how XLA schedules, unrolls or rematerialises the same
+computation and change nothing the model computes.  A trainer keeps
+float32 master weights (``init_lm(..., dtype=torch.float32)``), as the
+reference does; each layer is cast to ``cfg.dtype`` where it is used.
 """
 from __future__ import annotations
 
@@ -28,6 +38,7 @@ import math
 from typing import Any
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers
@@ -187,27 +198,45 @@ def _ffn(cfg: TransformerConfig, p: Params, h: torch.Tensor,
     return layers.swiglu(p["ffn"], h), None
 
 
+def _train_layer(cfg: TransformerConfig, p_layer: Params, x: torch.Tensor,
+                 aux: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """One block of the train path: (x, aux) -> (x, aux plus the layer's
+    load-balance loss).  The cast to ``cfg.dtype`` happens here, so under
+    the checkpoint the cast weights are recomputed, not kept for backward."""
+    p = _cast(p_layer, cfg.dtype)
+    h = layers.rms_norm(x, p["ln_attn"])
+    if cfg.attention == "mla":
+        a = attn_mod.mla_train(p["attn"], cfg.mla, h)
+    else:
+        a = attn_mod.gqa_train(p["attn"], cfg.gqa, h)
+    x = _residual(cfg, x, a)
+    h = layers.rms_norm(x, p["ln_ffn"])
+    out, a_loss = _ffn(cfg, p, h, no_drop=False)
+    if a_loss is not None:
+        aux = aux + a_loss
+    return _residual(cfg, x, out), aux
+
+
 def forward(cfg: TransformerConfig, params: Params,
             tokens: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """tokens (B, S) -> (hidden (B, S, D), aux_loss): the sum of the MoE
     layers' load-balance losses (0 for a dense model).  MoE layers drop
-    assignments past capacity_factor."""
+    assignments past capacity_factor.  When autograd records, each layer
+    runs under ``torch.utils.checkpoint`` (the same values; backward runs
+    each layer's forward again)."""
     _check_attention(cfg)
     x = _embed(cfg, params, tokens)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    records = torch.is_grad_enabled() and (
+        x.requires_grad or any(t.requires_grad
+                               for t in leaves(params["layers"])))
     for p_layer in params["layers"]:
-        p = _cast(p_layer, cfg.dtype)
-        h = layers.rms_norm(x, p["ln_attn"])
-        if cfg.attention == "mla":
-            a = attn_mod.mla_train(p["attn"], cfg.mla, h)
+        if records:
+            x, aux = torch.utils.checkpoint.checkpoint(
+                _train_layer, cfg, p_layer, x, aux, use_reentrant=False,
+                preserve_rng_state=False)
         else:
-            a = attn_mod.gqa_train(p["attn"], cfg.gqa, h)
-        x = _residual(cfg, x, a)
-        h = layers.rms_norm(x, p["ln_ffn"])
-        out, a_loss = _ffn(cfg, p, h, no_drop=False)
-        if a_loss is not None:
-            aux = aux + a_loss
-        x = _residual(cfg, x, out)
+            x, aux = _train_layer(cfg, p_layer, x, aux)
     x = layers.rms_norm(x, params["ln_final"].to(x.dtype))
     return x, aux
 
@@ -220,6 +249,20 @@ def logits_from_hidden(cfg: TransformerConfig, params: Params,
     logits = x @ head.to(x.dtype)
     ls = cfg.logit_scale
     return logits * ls if ls != 1.0 else logits
+
+
+def lm_loss(cfg: TransformerConfig, params: Params,
+            batch: dict[str, torch.Tensor]
+            ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """Causal LM loss.  batch: tokens (B, S), labels (B, S) (negative =
+    ignore, the reference's -100).  Returns (ce + aux_loss_weight * aux,
+    {"ce", "aux"}), the cross entropy in float32 over the kept labels."""
+    x, aux = forward(cfg, params, batch["tokens"])
+    logits = logits_from_hidden(cfg, params, x)
+    labels = batch["labels"]
+    mask = labels >= 0
+    loss = layers.cross_entropy(logits, labels.clamp_min(0), mask)
+    return loss + cfg.aux_loss_weight * aux, {"ce": loss, "aux": aux}
 
 
 def init_cache(cfg: TransformerConfig, batch: int, max_len: int,

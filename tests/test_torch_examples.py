@@ -1,4 +1,4 @@
-"""The four examples on the PyTorch port (``examples/torch_*.py``): each
+"""The five examples on the PyTorch port (``examples/torch_*.py``): each
 ``main`` on the CPU at a tiny size, and each source free of ``jax`` and
 ``repro`` imports."""
 import importlib.util
@@ -13,7 +13,7 @@ torch.set_num_threads(1)
 EXAMPLES = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "examples")
 NAMES = ("torch_quickstart", "torch_rag_retrieval", "torch_serve_e2e",
-         "torch_distributed_serve")
+         "torch_distributed_serve", "torch_train_lm")
 FORBIDDEN = re.compile(r"^\s*(import|from) (jax|repro)(\.|\s|$)", re.M)
 
 
@@ -75,3 +75,14 @@ def test_distributed_serve_on_cpu(capsys):
     assert "staged == monolithic step (bit-identical d2)" in text
     assert out["all_shards"] >= 0.9 and out["staged"] >= 0.9
     assert out["shard5_dropped"] < out["all_shards"]
+
+
+def test_train_lm_on_cpu(capsys):
+    """The 100M-parameter LM for two steps: a finite loss, a checkpoint at
+    the last step and the resume drill restoring it bit for bit."""
+    out = _load("torch_train_lm").main(
+        ["--device", "cpu", "--steps", "2", "--batch", "1", "--seq", "16"])
+    text = capsys.readouterr().out
+    assert "81M params" in text and "resume drill: restored step 2" in text
+    assert out["restored_step"] == 2 and out["restored_equal"]
+    assert out["first_loss"] > 0 and out["tokens_per_s"] > 0
