@@ -116,7 +116,9 @@ Phases, each printed on its own lines; any failure exits non-zero:
    it ends, so none queued behind the continue; each class engine first
    serves one flight and its partial outside the door, not counted, so
    that no first allocation on a new stream's pool falls inside a hold,
-   and the garbage collector is off).  Each run prints per class the statuses,
+   and the garbage collector is off).  Before the door's runs the built
+   world is frozen out of the collector (``gc.freeze()``; unfrozen after
+   [base]), so a full collection scans only what the runs allocate.  Each run prints per class the statuses,
    latency p50 / p99, recall@10 of ok and partial lanes, mean budget and
    hops, dispatches and ``begin``'s host ms, and per run how late the
    deadline and window timers fired, how long a submit held its client,
@@ -332,6 +334,37 @@ Phases, each printed on its own lines; any failure exits non-zero:
    steps: fails unless the loss improved and the step-100 checkpoint
    restores equal to the saved state bit for bit; prints tokens/s.  Each
    phase prints its seconds;
+4c. the recsys and GNN zoo (``repro_torch.models.recsys`` / ``gnn``; no
+   kernel of the port runs there, and each path prints that none
+   launched).  [recsys-dlrm], [recsys-deepfm], [recsys-mind] and
+   [recsys-bert4rec]: the smoke config's loss, every gradient, serve and
+   retrieval on the card against the CPU from the same weights and batch
+   (within 1e-4 relative L2); then the published config, weights from
+   --seed: serve_p99 (512) and serve_bulk (262,144; BERT4Rec scored in
+   chunks of 8,192 users; MIND and BERT4Rec score a 100-candidate slate),
+   retrieval_cand over pad_to(1M, 512) candidates in one call, held to
+   serve on 512 of the same candidates scored as a batch (within 1e-5
+   relative L2), and 4 train steps at train_batch through
+   ``make_train_step`` (AdamW lr 1e-3, no decay, as
+   ``src/repro/launch/cells.py:311`` builds it; the ported pipelines'
+   batches): loss, grad_norm and lr finite, lr the schedule's.  Cuts,
+   printed: dlrm-mlperf's tables above 16,000,000 rows cut to it for
+   serving and above 3,500,000 for training (its 96.1 GB table does not
+   fit one card; training holds the table, its dense gradient, m, v and
+   the update's temporaries), MIND's train batch 65,536 -> 32,768 (the
+   in-batch logits), BERT4Rec's 65,536 -> 128 (the tied cloze logits).  [gnn-gat] gat-cora: the smoke config's node and
+   graph losses, gradients and logits on the card against the CPU;
+   full_graph_sm at Cora's published size (padded as cells.py pads it),
+   30 steps at the reference's learning test's optimizer (const lr
+   1e-2): fails unless the last loss is below 0.7 of the first and the
+   accuracy above 0.5; ogb_products (its 61,859,140 edges halved once,
+   printed: a step at the published size runs out of memory), minibatch_lg (a
+   Reddit-sized synthetic graph on the host, 1,024 seeds at fanout
+   (15, 10) into padded blocks; the sampler's host ms a block beside the
+   step's) and molecule (128 graphs of 30 nodes), 4 steps each at the GAT
+   cells' optimizer (lr 5e-3, weight decay 5e-4, cells.py:191).  Each
+   prints step p50 / p99, examples (nodes, graphs) a second, peak
+   ``max_memory_allocated`` and the state's bytes;
 5. the kernels line (launches of each kernel on every path), then one JSON
    object per the port's contract, and the device line last.
 
@@ -359,6 +392,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -4542,8 +4576,9 @@ def topk_train_router(dev, g) -> dict:
 def train_loop(state, step_fn, data, steps: int, sched, tag: str):
     """``steps`` calls of ``step_fn``, each between two synchronises:
     (step ms, metrics as floats, the optimizer update's ms from CUDA
-    events around ``adamw_update``).  Fails unless loss, ce and grad_norm
-    are finite at every step and lr is ``sched``'s value."""
+    events around ``adamw_update``).  Fails unless every metric (loss,
+    the model's own, grad_norm, lr) is finite at every step and lr is
+    ``sched``'s value."""
     import math
 
     import torch
@@ -4574,8 +4609,7 @@ def train_loop(state, step_fn, data, steps: int, sched, tag: str):
     finally:
         opt_mod.adamw_update = real
     for i, r in enumerate(rows):
-        if not all(math.isfinite(r[k]) for k in ("loss", "ce",
-                                                 "grad_norm")):
+        if not all(math.isfinite(v) for v in r.values()):
             raise AssertionError(f"[{tag}] step {i + 1}: non-finite "
                                  f"metrics {r}")
         want = float(sched(i + 1))
@@ -4906,6 +4940,710 @@ def train_paths(dev, card: str, seed: int) -> dict:
             "examples-train": examples_train(card)}
 
 
+# --------------------------------------------------------------- phase 4c
+
+RECSYS_TAGS = {"dlrm-mlperf": "dlrm", "deepfm": "deepfm", "mind": "mind",
+               "bert4rec": "bert4rec"}
+# The optimizer settings src/repro/launch/cells.py builds for these cells
+# (a module the port has not taken yet): recsys :311, GAT :191; the rest
+# AdamWConfig's defaults.
+RECSYS_OPT = {"lr": 1e-3, "weight_decay": 0.0}
+GAT_OPT = {"lr": 5e-3, "weight_decay": 5e-4}
+# [gnn-gat]'s learning gate: the reference's own learning test's optimizer
+# (tests/test_models.py:150-164), 30 steps at full_graph_sm.
+GAT_LEARN_OPT = {"lr": 1e-2, "weight_decay": 0.0, "schedule": "const"}
+GAT_LEARN_STEPS = 30
+ZOO_CPU_RTOL = 1e-4          # card vs CPU at the smoke configs, float32
+ZOO_RETR_RTOL = 1e-5         # retrieval vs serve on the same candidates
+ZOO_RETR_CHECK = 512         # candidates scored both ways
+ZOO_SLATE = 100              # MIND / BERT4Rec serve: cells.py:299-301
+ZOO_TRAIN_STEPS = 4
+ZOO_SERVE_REPS = 8           # serve_p99 calls timed; serve_bulk and
+ZOO_BULK_REPS = 2            # retrieval_cand take 2 each
+# Cuts, each printed.  dlrm-mlperf's fused table (187,767,808 x 128
+# float32, 96.1 GB) does not fit one card: the five tables above the cap
+# keep its rows (the other 21 hold 4,063,992).  Serving holds the table
+# beside retrieval_cand's (1M, 26, 128) lookup (13.3 GB) and its
+# concatenation; training holds the table, its dense gradient, m, v and
+# AdamW's temporaries (about 7 table-sized tensors at the update's peak).
+# Each training cut is the largest that ran two steps in
+# ``chip_train_probe.py --zoo`` (NVIDIA H100 80GB HBM3, 700 W): a cap of
+# 3,500,000 (77.4 GB peak; 4,000,000 out of memory).
+DLRM_SERVE_CAP = 16_000_000
+DLRM_TRAIN_CAP = 3_500_000
+# train_batch (65,536) cut to the largest power of two that fits: MIND's
+# in-batch (B, B) logits (65,536 out of memory), BERT4Rec's tied
+# (B, 20, 1,000,960) cloze logits (256 out of memory; 128 52.4 GB).
+ZOO_TRAIN_BATCH = {"mind": 32768, "bert4rec": 128}
+# ogb_products' edges halved once: a step at the published 61,859,140 runs
+# out of memory (its (E, 8, 8) messages and their gradients); 30,929,570
+# peak at 49.7 GB.
+OGB_HALVINGS = 1
+BERT4REC_BULK_CHUNK = 8192   # serve_bulk scored in chunks of users
+
+
+def zoo_fns(arch: str, cfg) -> dict:
+    """{"init", "loss", "serve", "retrieval"} of a recsys arch, bound as
+    the reference's cells bind them (cells.py:251-276): serve is the
+    forward of DLRM / DeepFM and the slate scoring of MIND / BERT4Rec."""
+    from repro_torch.models import recsys
+
+    name = RECSYS_TAGS[arch]
+    loss = getattr(recsys, f"{name}_loss")
+    retr = getattr(recsys, f"{name}_retrieval")
+    if arch == "dlrm-mlperf":
+        def serve(p, b):
+            return recsys.dlrm_forward(cfg, p, b["dense"], b["sparse"])
+    elif arch == "deepfm":
+        def serve(p, b):
+            return recsys.deepfm_forward(cfg, p, b["sparse"])
+    else:
+        def serve(p, b):
+            return retr(cfg, p, b)
+    return {"init": getattr(recsys, f"{name}_init"),
+            "loss": lambda p, b: loss(cfg, p, b),
+            "serve": serve, "retrieval": lambda p, b: retr(cfg, p, b)}
+
+
+def field_vocabs(arch: str, cfg) -> tuple:
+    if arch == "dlrm-mlperf":
+        return cfg.vocab_sizes
+    if arch == "deepfm":
+        return (cfg.vocab_per_field,) * cfg.n_fields
+    return (cfg.n_items,)
+
+
+def zoo_inputs(arch: str, cfg, n: int, g, dev, slate: int = 0) -> dict:
+    """Serving inputs of ``n`` users drawn from ``g`` on ``dev``: ids
+    uniform below each field's vocabulary (DLRM's dense features normal),
+    MIND's histories of a length uniform in (L/2, L], BERT4Rec's
+    sequences ending in the mask token; with ``slate``, that many
+    candidates shared by the users."""
+    import torch
+
+    def ids(v, shape):
+        return torch.randint(0, v, shape, generator=g, device=dev)
+
+    if arch in ("dlrm-mlperf", "deepfm"):
+        out = {"sparse": torch.stack([ids(v, (n,))
+                                      for v in field_vocabs(arch, cfg)], 1)}
+        if arch == "dlrm-mlperf":
+            out["dense"] = torch.randn((n, cfg.n_dense), generator=g,
+                                       device=dev)
+        return out
+    if arch == "mind":
+        lens = ids(cfg.hist_len // 2, (n,)) + cfg.hist_len // 2 + 1
+        out = {"hist": ids(cfg.n_items, (n, cfg.hist_len)),
+               "hist_mask": torch.arange(cfg.hist_len, device=dev)[None]
+               < lens[:, None]}
+    else:
+        seq = ids(cfg.n_items, (n, cfg.seq_len))
+        seq[:, -1] = cfg.mask_token
+        out = {"seq": seq, "seq_mask": torch.ones_like(seq, dtype=torch.bool)}
+    if slate:
+        out["candidates"] = ids(cfg.n_items, (slate,))
+    return out
+
+
+def zoo_train_data(arch: str, cfg, batch: int, seed: int, dev):
+    """The ported pipelines (``training/data.py``): DlrmBatches for DLRM
+    (and, with no dense features, for DeepFM's 39 fields),
+    SeqRecBatches' ``mind_iter`` / ``bert4rec_iter``."""
+    from repro_torch.training.data import DlrmBatches, SeqRecBatches
+
+    dev = str(dev)
+    if arch == "dlrm-mlperf":
+        return iter(DlrmBatches(cfg.vocab_sizes, cfg.n_dense, batch,
+                                seed=seed, device=dev))
+    if arch == "deepfm":
+        return iter(DlrmBatches(field_vocabs(arch, cfg), 0, batch,
+                                seed=seed, device=dev))
+    if arch == "mind":
+        return SeqRecBatches(cfg.n_items, batch, cfg.hist_len, seed=seed,
+                             device=dev).mind_iter()
+    return SeqRecBatches(cfg.n_items, batch, cfg.seq_len, seed=seed,
+                         device=dev).bert4rec_iter(cfg.mask_token)
+
+
+def loss_and_grads(loss_fn, params, batch):
+    """(loss, metrics, gradients in the params' tree) by autograd."""
+    import torch
+
+    from repro_torch.training import optimizer as opt_mod
+
+    flat = [p for _, p in opt_mod.flatten(params)]
+    for p in flat:
+        p.requires_grad_(True)
+    try:
+        loss, metrics = loss_fn(params, batch)
+        it = iter(torch.autograd.grad(loss, flat))
+    finally:
+        for p in flat:
+            p.requires_grad_(False)
+    return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
+            opt_mod.tree_map(lambda _: next(it), params))
+
+
+def card_vs_cpu(tag: str, loss_fn, params, batch, forwards: dict,
+                dev) -> dict:
+    """``params`` and ``batch`` (on the CPU) through the loss, every
+    gradient and each of ``forwards`` ({name: (fn, inputs)}) once on the
+    CPU and once on ``dev``: {what: relative L2 error}; fails past
+    ZOO_CPU_RTOL."""
+    import torch
+
+    from repro_torch.training import optimizer as opt_mod
+
+    out = {}
+    for d in ("cpu", dev):
+        p = opt_mod.tree_map(lambda t, d=d: t.to(d).clone(), params)
+
+        def on(b, d=d):
+            return {k: v.to(d) for k, v in b.items()}
+
+        loss, _, grads = loss_and_grads(loss_fn, p, on(batch))
+        with torch.no_grad():
+            fw = {k: fn(p, on(b)).cpu() for k, (fn, b) in forwards.items()}
+        out[str(d)] = (loss.cpu(), [g.cpu() for _, g in
+                                    opt_mod.flatten(grads)], fw)
+    a, b = out[str(dev)], out["cpu"]
+    errs = {"loss": rel_l2(a[0], b[0]),
+            "gradients (max over tensors)": max(
+                rel_l2(x, y) for x, y in zip(a[1], b[1]))}
+    errs.update({k: rel_l2(a[2][k], b[2][k]) for k in forwards})
+    bad = {k: v for k, v in errs.items() if not v <= ZOO_CPU_RTOL}
+    if bad:
+        raise AssertionError(f"[{tag}] card vs CPU past {ZOO_CPU_RTOL} "
+                             f"relative L2: {bad}")
+    log(f"[{tag}] smoke config on the card vs the CPU (the same weights "
+        f"from the seed and batches): relative L2 "
+        f"{ {k: float(f'{v:.3g}') for k, v in errs.items()} } (bound "
+        f"{ZOO_CPU_RTOL})")
+    return errs
+
+
+def recsys_smoke_check(arch: str, dev, seed: int) -> dict:
+    """Gate 1 of a recsys arch: its smoke config's loss, gradients, serve
+    and retrieval on the card against the CPU."""
+    import torch
+
+    from repro_torch.configs import base
+
+    cfg = base.get(arch).smoke_config
+    fns = zoo_fns(arch, cfg)
+    params = fns["init"](torch.Generator().manual_seed(seed + 951), cfg,
+                         device="cpu")
+    g = torch.Generator().manual_seed(seed + 952)
+    retr = zoo_inputs(arch, cfg, 1, g, "cpu")
+    retr["candidates"] = torch.randint(0, field_vocabs(arch, cfg)[0],
+                                       (1024,), generator=g)
+    forwards = {"serve": (fns["serve"],
+                          zoo_inputs(arch, cfg, 64, g, "cpu", ZOO_SLATE)),
+                "retrieval": (fns["retrieval"], retr)}
+    train = next(zoo_train_data(arch, cfg, 64, seed + 953, "cpu"))
+    return card_vs_cpu(f"recsys-{RECSYS_TAGS[arch]}", fns["loss"], params,
+                       train, forwards, dev)
+
+
+def timed_ms(dev, fn, reps: int) -> tuple[list, object]:
+    """``reps`` calls of ``fn`` (:func:`timed_sync`): (ms of each, the
+    last result)."""
+    ms, out = [], None
+    for _ in range(reps):
+        out, secs = timed_sync(dev, fn)
+        ms.append(secs * 1e3)
+    return ms, out
+
+
+def dlrm_cut(cfg, cap: int):
+    """dlrm-mlperf with every table above ``cap`` rows cut to ``cap``:
+    (config, the cut as a sentence)."""
+    import dataclasses
+
+    cut = dataclasses.replace(cfg, vocab_sizes=tuple(
+        min(v, cap) for v in cfg.vocab_sizes))
+    n_cut = sum(v > cap for v in cfg.vocab_sizes)
+    row = cfg.embed_dim * 4
+    return cut, (f"{n_cut} tables above {cap:,} rows cut to it: "
+                 f"{cfg.table.total_rows:,} rows ({cfg.table.padded_rows:,} "
+                 f"padded, {cfg.table.padded_rows * row / 1e9:.1f} GB) -> "
+                 f"{cut.table.total_rows:,} ({cut.table.padded_rows:,}, "
+                 f"{cut.table.padded_rows * row / 1e9:.1f} GB)")
+
+
+def recsys_train_setup(arch: str, dev, seed: int, size: int | None = None):
+    """The train_batch cell of ``arch`` as the smoke runs it: float32
+    weights from the seed on the card, the recsys cells' optimizer, the
+    ported pipeline's batches.  ``size``: DLRM's table cap, or the batch
+    of MIND / BERT4Rec (default: the smoke's constants).  Returns (cfg,
+    state, step_fn, data, schedule, batch, the cut as a sentence)."""
+    import torch
+
+    from repro_torch.configs import base
+    from repro_torch.training import optimizer as opt_mod
+    from repro_torch.training import train_step as ts_mod
+
+    spec = base.get(arch)
+    cfg, b = spec.config, spec.cell("train_batch").meta["batch"]
+    cut = "none"
+    if arch == "dlrm-mlperf":
+        cfg, cut = dlrm_cut(cfg, size or DLRM_TRAIN_CAP)
+    elif arch in ZOO_TRAIN_BATCH:
+        nb = size or ZOO_TRAIN_BATCH[arch]
+        if nb != b:
+            cut = f"batch {b:,} -> {nb:,}"
+        b = nb
+    fns = zoo_fns(arch, cfg)
+    g = torch.Generator(device=dev).manual_seed(seed + 961)
+    params = fns["init"](g, cfg, device=dev)
+    opt_cfg = opt_mod.AdamWConfig(**RECSYS_OPT)
+    step_fn = ts_mod.make_train_step(fns["loss"], opt_cfg)
+    data = zoo_train_data(arch, cfg, b, seed + 962, dev)
+    return (cfg, ts_mod.init_train_state(params), step_fn, data,
+            opt_mod.schedule_fn(opt_cfg), b, cut)
+
+
+def recsys_path(arch: str, dev, card: str, seed: int) -> dict:
+    """[recsys-*] one recsys arch: its smoke config on the card against
+    the CPU (gate 1), then the published config (dlrm-mlperf's table cut
+    to fit, printed) at serve_p99, serve_bulk and retrieval_cand over
+    pad_to(1M, 512) candidates, retrieval held to serve on 512 of the same
+    candidates scored as a batch (within 1e-5 relative L2), and
+    ZOO_TRAIN_STEPS train steps at train_batch (cut to fit where
+    printed): loss, grad_norm and lr finite, lr the schedule's.  Returns
+    the launch counts (none: no kernel of the port runs here)."""
+    import torch
+
+    from repro_torch.configs import base
+    from repro_torch.kernels import ops
+
+    tag = f"recsys-{RECSYS_TAGS[arch]}"
+    t_phase = time.perf_counter()
+    ops.reset_launch_counts()
+    recsys_smoke_check(arch, dev, seed)
+    spec = base.get(arch)
+    cfg = spec.config
+    meta = {c.name: c.meta for c in spec.shapes}
+    cut = "none"
+    if arch == "dlrm-mlperf":
+        cfg, cut = dlrm_cut(cfg, DLRM_SERVE_CAP)
+    fns = zoo_fns(arch, cfg)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(seed + 971)
+    params = fns["init"](g, cfg, device=dev)
+    sync(dev)
+    init_s = time.perf_counter() - t0
+    rows = {}
+    with torch.no_grad():
+        for cell, reps in (("serve_p99", ZOO_SERVE_REPS),
+                           ("serve_bulk", ZOO_BULK_REPS)):
+            n = meta[cell]["batch"]
+            x = zoo_inputs(arch, cfg, n, g, dev, ZOO_SLATE)
+            if arch == "bert4rec" and n > BERT4REC_BULK_CHUNK:
+                def call(x=x, n=n):
+                    return torch.cat([fns["serve"](params, {
+                        k: v if k == "candidates"
+                        else v[i:i + BERT4REC_BULK_CHUNK]
+                        for k, v in x.items()})
+                        for i in range(0, n, BERT4REC_BULK_CHUNK)])
+            else:
+                def call(x=x):
+                    return fns["serve"](params, x)
+            ms, out = timed_ms(dev, call, reps)
+            if not bool(torch.isfinite(out).all()):
+                raise AssertionError(f"[{tag}] {cell}: non-finite scores")
+            rows[cell] = (n, ms, tuple(out.shape))
+            del x, out
+        c = base.pad_to(meta["retrieval_cand"]["n_candidates"], 512)
+        user = zoo_inputs(arch, cfg, 1, g, dev)
+        user["candidates"] = torch.randint(
+            0, field_vocabs(arch, cfg)[0], (c,), generator=g, device=dev)
+        ms, scores = timed_ms(dev, lambda: fns["retrieval"](params, user),
+                              ZOO_BULK_REPS)
+        rows["retrieval_cand"] = (c, ms, tuple(scores.shape))
+        sel = torch.randperm(c, generator=g, device=dev)[:ZOO_RETR_CHECK]
+        if arch in ("dlrm-mlperf", "deepfm"):
+            batch = {k: v.expand(ZOO_RETR_CHECK, -1).clone()
+                     for k, v in user.items() if k != "candidates"}
+            batch["sparse"][:, 0] = user["candidates"][sel]
+            served, want = fns["serve"](params, batch), scores[sel]
+        else:
+            batch = dict(user, candidates=user["candidates"][sel])
+            served, want = fns["serve"](params, batch), scores[:, sel]
+        retr_err = rel_l2(served, want)
+        del scores, user, batch, served, want
+    if not retr_err <= ZOO_RETR_RTOL:
+        raise AssertionError(f"[{tag}] retrieval vs serve on "
+                             f"{ZOO_RETR_CHECK} candidates: relative L2 "
+                             f"{retr_err:.3g} > {ZOO_RETR_RTOL}")
+    peak = torch.cuda.max_memory_allocated(dev)
+    held = state_bytes(params)
+    del params
+    torch.cuda.empty_cache()
+    cells = "; ".join(
+        f"{k} {n:,} {'candidates' if k == 'retrieval_cand' else 'rows'} -> "
+        f"{shape}: {step_stats(ms)}, {n / (statistics.median(ms) / 1e3):,.0f}"
+        f" {'candidates' if k == 'retrieval_cand' else 'examples'}/s"
+        for k, (n, ms, shape) in rows.items())
+    chunk = (f" (serve_bulk scored in chunks of {BERT4REC_BULK_CHUNK:,} "
+             f"users)" if arch == "bert4rec" else "")
+    log(f"[{tag}] serving, cut: {cut}; weights {held / 1e9:.2f} GB from the "
+        f"seed in {init_s:.1f} s; {cells}{chunk}; retrieval vs serve on "
+        f"{ZOO_RETR_CHECK} of the same candidates: relative L2 "
+        f"{retr_err:.3g} (bound {ZOO_RETR_RTOL}); peak memory "
+        f"{peak / 1e9:.2f} GB (max_memory_allocated); {card}")
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    tcfg, state, step_fn, data, sched, b, tcut = recsys_train_setup(
+        arch, dev, seed)
+    held = state_bytes(state)
+    state, step_ms, rows_t, upd_ms = train_loop(state, step_fn, data,
+                                                ZOO_TRAIN_STEPS, sched, tag)
+    peak = torch.cuda.max_memory_allocated(dev)
+    del state, data
+    torch.cuda.empty_cache()
+    counts = ops.launch_counts()
+    log(f"[{tag}] train_batch, cut: {tcut}; {ZOO_TRAIN_STEPS} steps of {b:,}"
+        f" (AdamW lr {RECSYS_OPT['lr']}, weight decay "
+        f"{RECSYS_OPT['weight_decay']}, cells.py:311): losses "
+        f"{[round(r['loss'], 4) for r in rows_t]}, grad_norm "
+        f"{[round(r['grad_norm'], 4) for r in rows_t]}, lr "
+        f"{[r['lr'] for r in rows_t]} (each schedule_fn's); step "
+        f"{step_stats(step_ms)}, "
+        f"{b / (statistics.median(step_ms) / 1e3):,.0f} examples/s at p50; "
+        f"update p50 {statistics.median(upd_ms):.3f} ms; state "
+        f"{held / 1e9:.2f} GB (weights and moments); peak memory "
+        f"{peak / 1e9:.2f} GB; {card}")
+    log(f"[{tag}] kernel launches on the path: "
+        f"{ {k: v for k, v in counts.items() if v} } (none: the recsys "
+        f"models run no kernel of the port); phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
+def node_graph(meta: dict, seed: int) -> tuple[dict, float]:
+    """A node-level cell's graph at its published size, padded as
+    cells.py:183-184 pads it (nodes and edges to multiples of 512; the
+    padded nodes unlabelled and out of the mask, the padded edges at the
+    ghost row): ``random_graph_data``'s homophilous graph as numpy arrays
+    on the host.  Returns (batch, host seconds)."""
+    import numpy as np
+
+    from repro_torch.configs import base
+    from repro_torch.models import gnn
+    from repro_torch.training.data import random_graph_data
+
+    t0 = time.perf_counter()
+    n, e = meta["n_nodes"], meta["n_edges"]
+    n_pad, e_pad = base.pad_to(n, 512), base.pad_to(e, 512)
+    feats, ei, labels, mask = random_graph_data(n, e, meta["d_feat"],
+                                                meta["n_classes"], seed=seed)
+    batch = {
+        "features": np.concatenate(
+            [feats, np.zeros((n_pad - n, feats.shape[1]), np.float32)]),
+        "edge_index": gnn.pad_edges(ei[0], ei[1], e_pad, n_pad),
+        "labels": np.concatenate([labels, np.zeros(n_pad - n, np.int32)]),
+        "mask": np.concatenate([mask, np.zeros(n_pad - n, bool)])}
+    return batch, time.perf_counter() - t0
+
+
+def on_device(batch: dict, dev) -> dict:
+    import torch
+
+    return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+
+def gat_train(cfg, loss_fn, dev, seed: int, opt: dict):
+    """Float32 GAT weights from the seed on ``dev``, ``make_train_step``
+    at ``opt``: (state, step_fn, schedule)."""
+    import torch
+
+    from repro_torch.models import gnn
+    from repro_torch.training import optimizer as opt_mod
+    from repro_torch.training import train_step as ts_mod
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    params = gnn.gat_init(g, cfg, device=dev)
+    opt_cfg = opt_mod.AdamWConfig(**opt)
+    return (ts_mod.init_train_state(params),
+            ts_mod.make_train_step(lambda p, b: loss_fn(cfg, p, b), opt_cfg),
+            opt_mod.schedule_fn(opt_cfg))
+
+
+def gat_steps(tag: str, cfg, loss_fn, batch, dev, seed: int, opt: dict,
+              steps: int):
+    """``steps`` train steps on one batch (train_loop's gates): (rows,
+    step ms, update ms, peak bytes, state bytes)."""
+    import itertools
+
+    import torch
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    state, step_fn, sched = gat_train(cfg, loss_fn, dev, seed, opt)
+    held = state_bytes(state)
+    state, ms, rows, upd = train_loop(state, step_fn,
+                                      itertools.repeat(batch), steps, sched,
+                                      tag)
+    del state
+    return rows, ms, upd, torch.cuda.max_memory_allocated(dev), held
+
+
+def gat_line(rows, ms, upd, peak, held, unit: float, what: str) -> str:
+    return (f"losses {[round(r['loss'], 4) for r in rows]}, acc "
+            f"{[round(r['acc'], 4) for r in rows]}, grad_norm "
+            f"{[round(r['grad_norm'], 4) for r in rows]}, lr "
+            f"{[r['lr'] for r in rows]}; step {step_stats(ms)}, "
+            f"{unit / (statistics.median(ms) / 1e3):,.0f} {what}/s at p50; "
+            f"update p50 {statistics.median(upd):.3f} ms; state "
+            f"{held / 1e6:.2f} MB; peak memory {peak / 1e9:.2f} GB")
+
+
+def ogb_graph(seed: int, halvings: int):
+    """ogb_products' graph with its edges halved ``halvings`` times, on
+    the host: (batch, host seconds, edges kept)."""
+    from repro_torch.configs import base
+
+    meta = dict(base.get("gat-cora").cell("ogb_products").meta)
+    meta["n_edges"] //= 2 ** halvings
+    batch, host_s = node_graph(meta, seed)
+    return batch, host_s, meta["n_edges"]
+
+
+def minibatch_block(sampler, meta: dict, feats, labels, rng, dev):
+    """One minibatch_lg block: ``batch_nodes`` seeds sampled at the
+    cell's fanout, padded to its static node and edge counts (the seeds
+    alone in the mask).  Returns (batch on ``dev``, host ms of the
+    sampling)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import gnn
+
+    t0 = time.perf_counter()
+    seeds = rng.choice(meta["full_graph_nodes"], meta["batch_nodes"],
+                       replace=False)
+    nodes, es, ed = sampler.sample_block(seeds, meta["fanout"])
+    host_ms = (time.perf_counter() - t0) * 1e3
+    n_pad = meta["n_nodes"]
+    x = np.zeros((n_pad, feats.shape[1]), np.float32)
+    x[:len(nodes)] = feats[nodes]
+    y = np.zeros(n_pad, np.int32)
+    y[:len(nodes)] = labels[nodes]
+    mask = np.zeros(n_pad, bool)
+    mask[:len(seeds)] = True
+    batch = {"features": x, "labels": y, "mask": mask,
+             "edge_index": gnn.pad_edges(es, ed, meta["n_edges"], n_pad)}
+    return ({k: torch.from_numpy(v).to(dev) for k, v in batch.items()},
+            host_ms, len(nodes), len(es))
+
+
+def molecule_batch(meta: dict, g, dev):
+    """The molecule cell: ``batch_graphs`` graphs of ``n_nodes`` nodes and
+    ``n_edges`` random intra-graph edges each, block-diagonal, padded as
+    cells.py:177-178 pads (the padded nodes' graph id G, outside [0, G),
+    so the pooling drops them)."""
+    import torch
+
+    from repro_torch.configs import base
+
+    gs, n, e = meta["batch_graphs"], meta["n_nodes"], meta["n_edges"]
+    n_pad, e_pad = base.pad_to(n * gs, 512), base.pad_to(e * gs, 512)
+    off = torch.arange(gs, device=dev).repeat_interleave(e) * n
+    src = torch.randint(0, n, (gs * e,), generator=g, device=dev) + off
+    dst = torch.randint(0, n, (gs * e,), generator=g, device=dev) + off
+    ei = torch.full((2, e_pad), n_pad, dtype=torch.int32, device=dev)
+    ei[0, :gs * e], ei[1, :gs * e] = src, dst
+    gid = torch.full((n_pad,), gs, dtype=torch.int32, device=dev)
+    gid[:gs * n] = torch.arange(gs, device=dev).repeat_interleave(n)
+    return {"features": torch.randn((n_pad, meta["d_feat"]), generator=g,
+                                    device=dev),
+            "edge_index": ei, "graph_ids": gid,
+            "labels": torch.randint(0, meta["n_classes"], (gs,),
+                                    generator=g, device=dev)}
+
+
+def reddit_graph(meta: dict, seed: int):
+    """minibatch_lg's graph on the host (``random_graph_data`` at the
+    cell's full-graph size) and its ``NeighborSampler``: (features,
+    labels, sampler, seconds)."""
+    from repro_torch.models import gnn
+    from repro_torch.training.data import random_graph_data
+
+    t0 = time.perf_counter()
+    feats, ei, labels, _ = random_graph_data(
+        meta["full_graph_nodes"], meta["full_graph_edges"], meta["d_feat"],
+        meta["n_classes"], seed=seed)
+    sampler = gnn.NeighborSampler(ei, meta["full_graph_nodes"], seed=seed)
+    return feats, labels, sampler, time.perf_counter() - t0
+
+
+def gnn_host_graphs(pool, seed: int) -> dict:
+    """Submit [gnn-gat]'s two large host graphs to ``pool`` (ogb_products'
+    and minibatch_lg's: about a minute of numpy, most of it outside the
+    GIL, which the earlier phases hide): {cell: future}."""
+    from repro_torch.configs import base
+
+    meta = base.get("gat-cora").cell("minibatch_lg").meta
+    return {"ogb_products": pool.submit(ogb_graph, seed, OGB_HALVINGS),
+            "minibatch_lg": pool.submit(reddit_graph, meta, seed)}
+
+
+def gnn_path(dev, card: str, seed: int, graphs: dict) -> dict:
+    """[gnn-gat]: gat-cora's four regimes.  Gate 1: the smoke config's
+    node and graph losses and gradients on the card against the CPU.
+    full_graph_sm at Cora's published size (padded as cells.py pads)
+    trains GAT_LEARN_STEPS steps of the reference's learning test's
+    optimizer and must end below 0.7 of its first loss with accuracy above
+    0.5; ogb_products (edges halved OGB_HALVINGS times, printed),
+    minibatch_lg (a Reddit-sized synthetic graph on the
+    host, 1,024 seeds sampled at fanout (15, 10) into padded blocks; the
+    sampler's host ms a block beside the step's) and molecule train
+    ZOO_TRAIN_STEPS steps at the GAT cells' optimizer (train_loop's
+    gates).  ``graphs``: :func:`gnn_host_graphs`' futures.  Returns the
+    launch counts (none)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import base
+    from repro_torch.kernels import ops
+    from repro_torch.models import gnn
+
+    t_phase = time.perf_counter()
+    ops.reset_launch_counts()
+    spec = base.get("gat-cora")
+    meta = {c.name: c.meta for c in spec.shapes}
+    # Gate 1 at the smoke config: a small Cora-like graph with padded
+    # edges, and a molecule batch.
+    small = dict(meta["full_graph_sm"], n_nodes=300, n_edges=2000, d_feat=16)
+    g = torch.Generator().manual_seed(seed + 981)
+    for name, b, m in (("gat_loss", on_device(node_graph(small, seed)[0],
+                                              "cpu"), small),
+                       ("gat_graph_loss", molecule_batch(
+                           dict(meta["molecule"], batch_graphs=8), g, "cpu"),
+                        meta["molecule"])):
+        cfg = spec.smoke_config.for_regime(m["d_feat"], m["n_classes"])
+        params = gnn.gat_init(torch.Generator().manual_seed(seed + 982), cfg,
+                              device="cpu")
+        fn = getattr(gnn, name)
+        logits = (lambda p, bb, cfg=cfg: gnn.gat_forward(
+            cfg, p, bb["features"], bb["edge_index"]), b)
+        card_vs_cpu(f"gnn-gat {name}", lambda p, bb, fn=fn, cfg=cfg:
+                    fn(cfg, p, bb), params, b, {"logits": logits}, dev)
+
+    # full_graph_sm: the learning gate.
+    m = meta["full_graph_sm"]
+    cfg = spec.config.for_regime(m["d_feat"], m["n_classes"])
+    batch, host_s = node_graph(m, seed)
+    batch = on_device(batch, dev)
+    rows, ms, upd, peak, held = gat_steps(
+        "gnn-gat", cfg, gnn.gat_loss, batch, dev, seed + 983, GAT_LEARN_OPT,
+        GAT_LEARN_STEPS)
+    first, last, acc = rows[0]["loss"], rows[-1]["loss"], rows[-1]["acc"]
+    if not (last < 0.7 * first and acc > 0.5):
+        raise AssertionError(f"[gnn-gat] full_graph_sm did not learn: loss "
+                             f"{first:.4f} -> {last:.4f}, accuracy {acc:.4f}")
+    n_nodes, n_edges = batch["features"].shape[0], batch["edge_index"].shape[1]
+    del batch
+    log(f"[gnn-gat] full_graph_sm at Cora's size ({m['n_nodes']:,} nodes, "
+        f"{m['n_edges']:,} edges, {m['d_feat']} features, {m['n_classes']} "
+        f"classes; padded to {n_nodes:,} / {n_edges:,}; graph {host_s:.1f} s "
+        f"on the host), {GAT_LEARN_STEPS} steps at {GAT_LEARN_OPT} (the "
+        f"reference's learning test): loss {first:.4f} -> {last:.4f} (< 0.7 "
+        f"x first), accuracy {acc:.4f} (> 0.5); "
+        f"{gat_line(rows[-4:], ms, upd, peak, held, m['n_nodes'], 'nodes')};"
+        f" {card}")
+
+    # ogb_products, its edges halved OGB_HALVINGS times.
+    m = meta["ogb_products"]
+    cfg = spec.config.for_regime(m["d_feat"], m["n_classes"])
+    batch, host_s, kept = graphs["ogb_products"].result()
+    batch = on_device(batch, dev)
+    rows, ms, upd, peak, held = gat_steps(
+        "gnn-gat", cfg, gnn.gat_loss, batch, dev, seed + 984, GAT_OPT,
+        ZOO_TRAIN_STEPS)
+    cut = ("none" if kept == m["n_edges"] else
+           f"edges {m['n_edges']:,} -> {kept:,} (a step at the published "
+           f"size runs out of memory)")
+    del batch
+    torch.cuda.empty_cache()
+    log(f"[gnn-gat] ogb_products, cut: {cut}; {m['n_nodes']:,} nodes, "
+        f"{kept:,} edges (padded to multiples of 512), {m['d_feat']} "
+        f"features, {m['n_classes']} classes (graph {host_s:.1f} s on a "
+        f"host thread), {ZOO_TRAIN_STEPS} steps at {GAT_OPT} (cells.py:191): "
+        f"{gat_line(rows, ms, upd, peak, held, m['n_nodes'], 'nodes')}; "
+        f"{card}")
+
+    # minibatch_lg: sampled blocks of a Reddit-sized graph held on the host.
+    m = meta["minibatch_lg"]
+    t0 = time.perf_counter()
+    feats, labels, sampler, graph_s = graphs["minibatch_lg"].result()
+    waited = time.perf_counter() - t0
+    rng = np.random.default_rng(seed + 985)
+    cfg = spec.config.for_regime(m["d_feat"], m["n_classes"])
+    torch.cuda.reset_peak_memory_stats(dev)
+    state, step_fn, sched = gat_train(cfg, gnn.gat_loss, dev, seed + 986,
+                                      GAT_OPT)
+    held = state_bytes(state)
+    host, sizes, blocks = [], [], []
+    for _ in range(ZOO_TRAIN_STEPS):
+        b, h_ms, nn_, ne = minibatch_block(sampler, m, feats, labels, rng,
+                                           dev)
+        blocks.append(b)
+        host.append(h_ms)
+        sizes.append((nn_, ne))
+    state, ms, rows, upd = train_loop(state, step_fn, iter(blocks),
+                                      ZOO_TRAIN_STEPS, sched, "gnn-gat")
+    peak = torch.cuda.max_memory_allocated(dev)
+    del state, blocks, feats, labels, sampler
+    log(f"[gnn-gat] minibatch_lg: a Reddit-sized graph on the host "
+        f"({m['full_graph_nodes']:,} nodes, {m['full_graph_edges']:,} edges,"
+        f" {m['d_feat']} features; generated and indexed in {graph_s:.1f} s "
+        f"on a host thread beside the earlier phases, {waited:.1f} s of it "
+        f"waited for here)"
+        f", {m['batch_nodes']:,} seeds a block at fanout {m['fanout']} "
+        f"(nodes, edges: {sizes}; padded to {m['n_nodes']:,} / "
+        f"{m['n_edges']:,}); sampler host ms a block "
+        f"{[round(x, 1) for x in host]} beside the device step's "
+        f"{[round(x, 1) for x in ms]} ms; "
+        f"{gat_line(rows, ms, upd, peak, held, m['batch_nodes'], 'seeds')};"
+        f" {card}")
+
+    m = meta["molecule"]
+    cfg = spec.config.for_regime(m["d_feat"], m["n_classes"])
+    g = torch.Generator(device=dev).manual_seed(seed + 987)
+    batch = molecule_batch(m, g, dev)
+    rows, ms, upd, peak, held = gat_steps(
+        "gnn-gat", cfg, gnn.gat_graph_loss, batch, dev, seed + 988, GAT_OPT,
+        ZOO_TRAIN_STEPS)
+    log(f"[gnn-gat] molecule: {m['batch_graphs']} graphs of {m['n_nodes']} "
+        f"nodes and {m['n_edges']} edges (padded to "
+        f"{batch['features'].shape[0]:,} / "
+        f"{batch['edge_index'].shape[1]:,}), {ZOO_TRAIN_STEPS} steps at "
+        f"{GAT_OPT}: "
+        f"{gat_line(rows, ms, upd, peak, held, m['batch_graphs'], 'graphs')}"
+        f"; {card}")
+    del batch
+    torch.cuda.empty_cache()
+    counts = ops.launch_counts()
+    log(f"[gnn-gat] kernel launches on the path: "
+        f"{ {k: v for k, v in counts.items() if v} } (none: the GAT runs no "
+        f"kernel of the port); phase {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
+def zoo_paths(dev, card: str, seed: int, graphs: dict | None = None) -> dict:
+    """[recsys-*] and [gnn-gat]: {path: launch counts}.  ``graphs``:
+    :func:`gnn_host_graphs`' futures, submitted here when None."""
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        if graphs is None:
+            graphs = gnn_host_graphs(pool, seed)
+        out = {f"recsys-{RECSYS_TAGS[a]}": recsys_path(a, dev, card, seed)
+               for a in RECSYS_TAGS}
+        out["gnn-gat"] = gnn_path(dev, card, seed, graphs)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=1_000_000,
@@ -4964,6 +5702,12 @@ def main(argv=None) -> int:
                                      trace=args.trace_first_batch)
     paths["calibration"] = calibration_path(world)
     paths["adc"] = adc_path(world)
+    # The world is built: move it out of the collector's sight, so that a
+    # full collection under [door]'s load scans only what the runs make.
+    gc.collect()
+    gc.freeze()
+    log(f"[door] gc.freeze(): {gc.get_freeze_count():,} objects moved to "
+        f"the permanent generation before the door's runs")
     paths["door"] = door_path(world, card, args.seed)
     tmp = tempfile.mkdtemp(prefix="mcgi-disk-")
     try:
@@ -4980,6 +5724,9 @@ def main(argv=None) -> int:
         shutil.rmtree(tmp, ignore_errors=True)
     paths["dist"] = dist_path(world, card, args.seed)
     paths["base"] = base_path(world, card, args.seed)
+    # Back in the collector's sight: cycles in the world (and the card
+    # memory they hold) must be freed before the LM phases.
+    gc.unfreeze()
     del world
     torch.cuda.empty_cache()
     paths["metric"] = metric_path(dev, args.seed, card)
@@ -4988,7 +5735,11 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     lm_counts, attn_err = lm_paths(dev, args.seed)
     paths.update(lm_counts)
-    paths.update(train_paths(dev, card, args.seed))
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        # [gnn-gat]'s host graphs, made beside the training phases.
+        graphs = gnn_host_graphs(pool, args.seed)
+        paths.update(train_paths(dev, card, args.seed))
+        paths.update(zoo_paths(dev, card, args.seed, graphs))
     for rec in kernels:
         if rec["name"] == "decode_attention":
             rec["max_abs_err"] = max(rec["max_abs_err"], attn_err)

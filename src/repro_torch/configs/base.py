@@ -4,7 +4,7 @@ port's copy of :mod:`repro.configs.base`).
 An architecture registers an :class:`ArchSpec` binding its exact published
 configuration, a reduced same-family smoke configuration and its shape
 cells.  :func:`get` and :func:`all_archs` load every config the port has:
-the five LM archs and the MCGI datasets.
+the five LM archs, the four recsys archs, the GAT and the MCGI datasets.
 """
 from __future__ import annotations
 
@@ -72,9 +72,14 @@ def all_archs() -> dict[str, ArchSpec]:
 def _ensure_loaded() -> None:
     # Importing a config module registers it (once: modules import once).
     from repro_torch.configs import (  # noqa: F401
+        bert4rec,
+        deepfm,
         deepseek_coder_33b,
         deepseek_v2_lite_16b,
+        dlrm_mlperf,
+        gat_cora,
         mcgi_datasets,
+        mind,
         minicpm_2b,
         qwen2_7b,
         qwen3_moe_30b_a3b,
@@ -97,3 +102,13 @@ def lm_shapes() -> tuple[ShapeCell, ...]:
         ShapeCell("long_500k", DECODE, {"seq": 524288, "batch": 1},
                   note=note_500k),
     )
+
+
+# The four shape cells shared by the recsys archs.
+RECSYS_SHAPES = (
+    ShapeCell("train_batch", TRAIN, {"batch": 65536}),
+    ShapeCell("serve_p99", SERVE, {"batch": 512}),
+    ShapeCell("serve_bulk", SERVE, {"batch": 262144}),
+    ShapeCell("retrieval_cand", RETRIEVAL,
+              {"batch": 1, "n_candidates": 1_000_000}),
+)

@@ -1,4 +1,4 @@
-"""The reference's LM parameters into the port's layout.
+"""The reference's parameters into the port's layout.
 
 :func:`lm_params_from_reference` takes the pytree of the reference's
 ``repro.models.transformer.init_lm`` as numpy arrays (for instance
@@ -6,8 +6,10 @@
 stacked leading layer axis becomes one dict per layer, an MoE net's
 ``dense_layers`` stack its first entries.  Stacked MoE weights ((E, d, f)
 a layer, ``router``, ``shared``), MLA's keys, ``q_norm`` / ``k_norm`` and
-a tied model without ``lm_head`` carry across as they are.  Used by the
-parity tests; it imports nothing of the reference.
+a tied model without ``lm_head`` carry across as they are.
+:func:`params_from_reference` carries the recsys models' and the GAT's
+trees across with their structure unchanged (neither stacks a layer axis).
+Used by the parity tests; it imports nothing of the reference.
 """
 from __future__ import annotations
 
@@ -29,7 +31,20 @@ def _tensor(a, dtype, dev) -> torch.Tensor:
 def _tree(tree, fn):
     if isinstance(tree, dict):
         return {k: _tree(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree(v, fn) for v in tree]
     return fn(tree)
+
+
+def params_from_reference(params_np: Params, device="cuda",
+                          dtype: torch.dtype = torch.float32) -> Params:
+    """A tree of numpy arrays (dicts and lists: the reference's
+    ``dlrm_init``, ``deepfm_init``, ``mind_init``, ``bert4rec_init`` or
+    ``gat_init``) -> the same structure of tensors in ``dtype`` on
+    ``device``.  BERT4Rec's ``blocks`` and the GAT's ``layers`` stay
+    lists: the reference has no stacked axis there."""
+    dev = resolve_device(device)
+    return _tree(params_np, lambda a: _tensor(a, dtype, dev))
 
 
 def lm_params_from_reference(params_np: Params, cfg: TransformerConfig,

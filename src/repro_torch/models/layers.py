@@ -10,7 +10,7 @@ without one unless the caller asks for ``device="cpu"``
 """
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Callable
 
 import torch
 import torch.nn.functional as F
@@ -52,6 +52,17 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * gamma
 
 
+def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+               eps: float = 1e-6) -> torch.Tensor:
+    """Normalised in float32 with the reference's eps (1e-6, not torch's
+    1e-5), cast back to x's dtype, then ``* gamma + beta`` in that
+    dtype."""
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+    return ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype) * gamma + beta
+
+
 def rope_freqs(d_head: int, theta: float = 10000.0,
                device=None) -> torch.Tensor:
     exps = torch.arange(0, d_head, 2, dtype=torch.float32,
@@ -84,6 +95,31 @@ def swiglu_init(generator: torch.Generator | None, d: int, f: int, *,
 def swiglu(p: Params, x: torch.Tensor) -> torch.Tensor:
     g = F.silu(x @ p["w_gate"])
     return (g * (x @ p["w_up"])) @ p["w_down"]
+
+
+def mlp_init(generator: torch.Generator | None, sizes: tuple[int, ...], *,
+             dtype=torch.float32, device="cuda") -> Params:
+    """``w{i}`` (sizes[i], sizes[i+1]) at :func:`dense_init`'s 1/sqrt(d_in)
+    scale and zero ``b{i}``, for each consecutive pair of ``sizes``."""
+    kw = dict(dtype=dtype, device=init_device(device))
+    n = len(sizes) - 1
+    p = {f"w{i}": dense_init(generator, sizes[i], sizes[i + 1], **kw)
+         for i in range(n)}
+    p.update({f"b{i}": torch.zeros((sizes[i + 1],), **kw)
+              for i in range(n)})
+    return p
+
+
+def mlp_apply(p: Params, x: torch.Tensor, act: Callable = F.relu,
+              final_act: bool = False) -> torch.Tensor:
+    """``x @ w{i} + b{i}`` for each layer, ``act`` between layers (and
+    after the last with ``final_act``)."""
+    n = len([k for k in p if k.startswith("w")])
+    for i in range(n):
+        x = x @ p[f"w{i}"] + p[f"b{i}"]
+        if i < n - 1 or final_act:
+            x = act(x)
+    return x
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,

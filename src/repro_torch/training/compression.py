@@ -9,10 +9,11 @@ transform is the quantise -> dequantise round trip around the optimizer
 update, the order a hand-rolled ring all-reduce would use.
 
 The scale and the payload follow the reference's leaves
-(:func:`repro_torch.training.optimizer.reference_leaves`): one ``amax``
-over the same-named gradient of every layer of a stack group, so one
-scale serves that tensor in every layer of the group, as it does in the
-reference's stacked leaf.  Rounding is half to even (``torch.round``, as
+(:func:`repro_torch.training.optimizer.reference_leaves`): in the
+transformer, one ``amax`` over the same-named gradient of every layer of a
+stack group, so one scale serves that tensor in every layer of the group,
+as it does in the reference's stacked leaf; in any other model (the GAT's
+layer list) one scale a tensor.  Rounding is half to even (``torch.round``, as
 ``jnp.round``).  Everything runs in place, one tensor at a time.
 """
 from __future__ import annotations

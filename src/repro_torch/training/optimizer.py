@@ -12,11 +12,12 @@ and moments in place with ``torch._foreach_*`` ops, one layer at a time
 in place (no second copy of them).
 
 Weight decay follows the reference's rule on the reference's leaves: a
-leaf of rank >= 2 decays.  The reference stacks the layers on a leading
-axis, so every tensor of a layer (the norm gammas and QKV biases too)
-decays there, and only a top-level vector (``ln_final``) does not;
-:func:`reference_leaves` maps the port's per-layer tree onto those
-leaves.
+leaf of rank >= 2 decays.  The reference stacks the transformer's layers
+on a leading axis, so every tensor of a layer (the norm gammas and QKV
+biases too) decays there, and only a top-level vector (``ln_final``) does
+not; :func:`reference_leaves` maps the port's per-layer tree onto those
+leaves.  No other model stacks: a GAT layer's tensors are leaves of their
+own.
 """
 from __future__ import annotations
 
@@ -114,21 +115,31 @@ def flatten(tree, path=()):
         yield path, tree
 
 
+def stacks_layers(tree) -> bool:
+    """Whether the reference stacks this tree's ``layers`` on a leading
+    axis: only the transformer's (``transformer.init_lm``: ``embed`` and
+    ``ln_final`` beside the ``layers`` list).  Every other model's
+    ``layers`` (the GAT's) is a plain list, each tensor a leaf of its
+    own."""
+    return (isinstance(tree, dict) and isinstance(tree.get("layers"), list)
+            and "embed" in tree and "ln_final" in tree)
+
+
 def reference_leaves(tree) -> list[tuple[str, list[torch.Tensor], bool]]:
     """The reference's leaves of a tree in the port's layout, as (name,
-    tensors, stacked).  The reference stacks ``tree["layers"]`` on a
-    leading axis: an MoE net's dense prefix (the layers with ``ffn`` when
-    some layer has ``moe``) in its own ``dense_layers`` stack, the rest in
-    ``layers``; one of its leaves is then the same-named tensor of every
-    layer of a stack (``stacked``, its rank one more than each part's).
-    Every other tensor is a leaf of its own.  Works on any tree with the
-    parameters' structure (gradients, moments, error feedback)."""
+    tensors, stacked).  For the transformer (:func:`stacks_layers`) the
+    reference stacks ``tree["layers"]`` on a leading axis: an MoE net's
+    dense prefix (the layers with ``ffn`` when some layer has ``moe``) in
+    its own ``dense_layers`` stack, the rest in ``layers``; one of its
+    leaves is then the same-named tensor of every layer of a stack
+    (``stacked``, its rank one more than each part's).  Every other
+    tensor is a leaf of its own.  Works on any tree with the parameters'
+    structure (gradients, moments, error feedback)."""
     out: dict[str, tuple[list, bool]] = {}
-    layer_list = tree.get("layers") if isinstance(tree, dict) else None
-    moe_net = isinstance(layer_list, list) and any(
-        "moe" in lp for lp in layer_list)
+    layer_list = tree["layers"] if stacks_layers(tree) else None
+    moe_net = layer_list is not None and any("moe" in lp for lp in layer_list)
     for path, t in flatten(tree):
-        if path[0] == "layers" and isinstance(layer_list, list):
+        if layer_list is not None and path[0] == "layers":
             group = ("dense_layers" if moe_net and "ffn" in layer_list[path[1]]
                      else "layers")
             name = "/".join([group] + [str(p) for p in path[2:]])

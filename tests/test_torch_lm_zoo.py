@@ -365,22 +365,25 @@ def test_configs_and_cells_match_reference(jx, arch):
 
 
 def test_registry_matches_reference(jx):
-    """The port's registry holds the reference's LM and MCGI archs (its
-    recsys and GNN archs are not ported); each MCGI dataset's config,
-    ``-smoke`` variant, cell and source equal the reference's."""
+    """The port's registry holds every arch of the reference's (the LM,
+    recsys, GNN and MCGI families), each in the reference's family with
+    its cells' (name, kind, meta) and its source; the MCGI datasets'
+    config and ``-smoke`` variant equal the reference's field for
+    field."""
     ours, theirs = tbase.all_archs(), jx["base"].all_archs()
-    assert set(ours) == {a for a, s in theirs.items()
-                         if s.family in ("lm", "mcgi")}
+    assert set(ours) == set(theirs)
+    assert {s.family for s in ours.values()} == {"lm", "recsys", "gnn",
+                                                 "mcgi"}
     for arch, spec in ours.items():
+        ref = theirs[arch]
+        assert (spec.family, spec.source) == (ref.family, ref.source), arch
+        assert [(c.name, c.kind, c.meta) for c in spec.shapes] == [
+            (c.name, c.kind, c.meta) for c in ref.shapes], arch
         if spec.family != "mcgi":
             continue
-        ref = theirs[arch]
         for a, b in ((spec.config, ref.config),
                      (spec.smoke_config, ref.smoke_config)):
             assert dataclasses.asdict(a) == dataclasses.asdict(b), arch
-        assert spec.source == ref.source
-        assert [(c.name, c.kind, c.meta) for c in spec.shapes] == [
-            (c.name, c.kind, c.meta) for c in ref.shapes]
 
 
 @pytest.mark.parametrize("arch", list(ARCHS))

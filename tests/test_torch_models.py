@@ -332,17 +332,26 @@ def test_config_registry():
           "qwen3-moe-30b-a3b", "deepseek-v2-lite-16b"}
     mcgi = {"mcgi-sift1m", "mcgi-glove100", "mcgi-gist1m", "mcgi-sift1b",
             "mcgi-t2i1b"}
-    assert set(archs) == lm | mcgi
+    recsys = {"dlrm-mlperf", "deepfm", "mind", "bert4rec"}
+    assert set(archs) == lm | mcgi | recsys | {"gat-cora"}
     for name, a in archs.items():
-        assert a.family == ("lm" if name in lm else "mcgi")
-        assert a.smoke_config.name.endswith("-smoke")
-        assert a.smoke_config.name != a.config.name
+        family = ("lm" if name in lm else "mcgi" if name in mcgi
+                  else "recsys" if name in recsys else "gnn")
+        assert a.family == family
+        if family in ("lm", "mcgi"):
+            assert a.smoke_config.name.endswith("-smoke")
+            assert a.smoke_config.name != a.config.name
+        else:
+            assert a.smoke_config != a.config
     sift = archs["mcgi-sift1m"]
     assert sift.smoke_config.n == 4096 and sift.smoke_config.d == 64
     assert [(c.name, c.kind, c.meta) for c in sift.shapes] == [
         ("serve", tbase.MCGI_SEARCH, {"queries": 4096, "k": 10})]
+    assert tbase.get("bert4rec").shapes == tbase.RECSYS_SHAPES
+    assert [c.name for c in tbase.get("gat-cora").shapes] == [
+        "full_graph_sm", "minibatch_lg", "ogb_products", "molecule"]
     with pytest.raises(KeyError):
-        tbase.get("bert4rec")
+        tbase.get("bert4rec-xl")
     with pytest.raises(ValueError):
         tbase.register(spec)
 
