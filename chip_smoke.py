@@ -316,7 +316,13 @@ Phases, each printed on its own lines; any failure exits non-zero:
    events), peak ``max_memory_allocated``, the state's bytes and the
    model-FLOP share at 989 TFLOP/s bf16, its count written out (6 N a
    token, N the parameters a token multiplies: an MoE layer's top_k of
-   its routed experts, an untied input embedding left out).
+   its routed experts, an untied input embedding left out).  Beside the
+   steps, in a process of its own with the card hidden, the dry run of
+   the same step on the meta device (``python -m
+   repro_torch.launch.dryrun --arch minicpm-2b --shape train_4k --batch
+   TRAIN_BATCH``): its state must hold exactly the card's state bytes
+   (gate); its predicted peak and counted FLOPs are printed beside
+   ``max_memory_allocated`` and the model FLOPs, with its seconds.
    [lm-train-moe] deepseek-v2-lite-16b at full width, its depth cut from
    27 to 4 (the dense first layer and 3 MoE layers; printed as a cut),
    batch 1, 8 steps of the cosine schedule (the launcher's warmup of 5):
@@ -386,6 +392,7 @@ import contextlib
 import gc
 import json
 import os
+import pathlib
 import shutil
 import statistics
 import subprocess
@@ -4514,6 +4521,7 @@ TRAIN_CELL = "train_4k"                # S = 4096 (configs/base.py)
 TRAIN_BATCH = 2
 TRAIN_STEPS = 8
 TRAIN_LR = 3e-4                        # launch/train.py's default
+DRYRUN_WAIT_S = 120                    # [lm-train]'s dry run, at most
 # [lm-train-moe]: deepseek-v2-lite's depth cut from 27 to its dense first
 # layer and 3 MoE layers (the full depth's 251 GB of state does not fit).
 # 8 steps: the launcher's warmup of 5, then 3 of the cosine decay.
@@ -4693,6 +4701,46 @@ def train_flops(cfg, b: int, s: int) -> tuple[float, str]:
                           f"{(dense + attn) / 1e12:.2f} TFLOP")
 
 
+def train_dryrun_start(arch: str, batch: int):
+    """Start the dry run of [lm-train]'s step (``arch`` at TRAIN_CELL, the
+    batch cut to ``batch``: the same config, the float32 state
+    ``train_setup`` makes) on the meta device, in a process of its own on
+    the host's other cores while the card trains, the card hidden from it:
+    (process, its record's path)."""
+    out = tempfile.mkdtemp(prefix="mcgi-dryrun-")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               CUDA_VISIBLE_DEVICES="")
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+           "--shape", TRAIN_CELL, "--batch", str(batch), "--out", out]
+    proc = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    from repro_torch.launch import dryrun
+
+    return proc, dryrun.record_path(pathlib.Path(out), arch, TRAIN_CELL,
+                                    batch=batch)
+
+
+def train_dryrun_finish(proc, path) -> tuple[dict, float]:
+    """Wait for :func:`train_dryrun_start`'s process (at most
+    DRYRUN_WAIT_S; killed past it): (its record, seconds waited); raises
+    if it failed.  Its directory is removed either way."""
+    t0 = time.perf_counter()
+    try:
+        try:
+            text, _ = proc.communicate(timeout=DRYRUN_WAIT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            raise AssertionError(f"[lm-train] dry run still running after "
+                                 f"{DRYRUN_WAIT_S} s of waiting")
+        if proc.returncode != 0:
+            raise AssertionError(f"[lm-train] dry run failed:\n"
+                                 f"{text[-3000:]}")
+        return json.loads(path.read_text()), time.perf_counter() - t0
+    finally:
+        shutil.rmtree(path.parent, ignore_errors=True)
+
+
 def lm_train(dev, card: str, seed: int) -> dict:
     """[lm-train]: minicpm-2b at full width and depth (40 layers,
     2,725,173,504 parameters) trained through ``make_train_step`` at
@@ -4701,29 +4749,50 @@ def lm_train(dev, card: str, seed: int) -> dict:
     as ``launch/train.py`` picks it, TRAIN_STEPS steps.  Fails unless
     loss, ce and grad_norm are finite at every step, lr equals
     ``schedule_fn``'s value and the mean loss of the last two steps is
-    below the first step's.  Returns the launch counts."""
+    below the first step's, and unless the dry run of the same step on the
+    meta device (``launch/dryrun.py``, in its own process beside the
+    steps) holds a state of exactly the card's bytes; its predicted peak
+    and FLOPs are printed beside the measured ones.  Returns the launch
+    counts."""
     import torch
 
     from repro_torch.configs import base
     from repro_torch.kernels import ops
+
+    from repro_torch.launch import cells
 
     t_phase = time.perf_counter()
     spec = base.get("minicpm-2b")
     cfg = spec.config
     cell = spec.cell(TRAIN_CELL).meta
     s = cell["seq"]
+    dry_proc, dry_path = train_dryrun_start(spec.arch_id, TRAIN_BATCH)
     log(f"[lm-train] batch cut: {cell['batch']} -> {TRAIN_BATCH} (train_4k "
         f"at S={s}; the float32 weights, gradients and AdamW moments "
         f"alone take {16 * cfg.n_params() / 1e9:.1f} GB)")
-    torch.cuda.reset_peak_memory_stats(dev)
-    state, step_fn, data, sched, opt_cfg = train_setup(
-        spec, cfg, dev, seed, 901, TRAIN_STEPS, TRAIN_BATCH)
-    held = state_bytes(state)
-    ops.reset_launch_counts()
-    state, step_ms, rows, upd_ms = train_loop(state, step_fn, data,
-                                              TRAIN_STEPS, sched, "lm-train")
-    counts = ops.launch_counts()
-    peak = torch.cuda.max_memory_allocated(dev)
+    try:
+        torch.cuda.reset_peak_memory_stats(dev)
+        state, step_fn, data, sched, opt_cfg = train_setup(
+            spec, cfg, dev, seed, 901, TRAIN_STEPS, TRAIN_BATCH)
+        held = state_bytes(state)
+        ops.reset_launch_counts()
+        state, step_ms, rows, upd_ms = train_loop(
+            state, step_fn, data, TRAIN_STEPS, sched, "lm-train")
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+    except BaseException:
+        dry_proc.kill()
+        dry_proc.communicate()
+        raise
+    if opt_cfg.schedule != cells.lm_schedule(spec.arch_id):
+        raise AssertionError(f"[lm-train] schedule {opt_cfg.schedule!r}, "
+                             f"the train cells' is "
+                             f"{cells.lm_schedule(spec.arch_id)!r}")
+    dry, waited = train_dryrun_finish(dry_proc, dry_path)
+    dry_state = dry["memory"]["argument_bytes_each"][0]
+    if dry_state != held:
+        raise AssertionError(f"[lm-train] the dry run's state is "
+                             f"{dry_state} bytes, the card's {held}")
     losses = [r["loss"] for r in rows]
     if not (losses[-1] + losses[-2]) / 2 < losses[0]:
         raise AssertionError(f"[lm-train] loss did not fall: {losses}")
@@ -4744,6 +4813,18 @@ def lm_train(dev, card: str, seed: int) -> dict:
         f"moments; gradients {held / 3e9:.2f} GB more during a step); "
         f"model FLOPs {count}: {100 * flops / (p50 / 1e3) / BF16_TC_OPS_PER_S:.2f}"
         f"% of {BF16_TC_OPS_PER_S / 1e12:.0f} TFLOP/s bf16 at p50; {card}")
+    dpeak = dry["memory"]["peak_per_device_bytes"]
+    dflops = dry["cost"]["flops_per_device"]
+    log(f"[lm-train] dry run of the same step on the meta device "
+        f"(launch/dryrun.py, batch {TRAIN_BATCH}): state {dry_state} bytes "
+        f"= held {held} (gate); predicted peak {dpeak / 1e9:.3f} GB vs "
+        f"max_memory_allocated {peak / 1e9:.3f} GB (ratio "
+        f"{dpeak / peak:.4f}); counted FLOPs {dflops / 1e12:.2f} T "
+        f"({', '.join(f'{k} {v / 1e12:.2f} T' for k, v in dry['cost']['flops_by_dtype'].items())}; "
+        f"remat's recompute and the head included) vs model FLOPs "
+        f"{flops / 1e12:.2f} T (ratio {dflops / flops:.4f}); dry run "
+        f"{dry['timings_s']['build'] + dry['timings_s']['run']:.1f} s in "
+        f"its own process beside the steps, {waited:.1f} s waited for it")
     del state, data
     torch.cuda.empty_cache()
     log(f"[lm-train] phase {time.perf_counter() - t_phase:.1f} s")
@@ -4944,11 +5025,8 @@ def train_paths(dev, card: str, seed: int) -> dict:
 
 RECSYS_TAGS = {"dlrm-mlperf": "dlrm", "deepfm": "deepfm", "mind": "mind",
                "bert4rec": "bert4rec"}
-# The optimizer settings src/repro/launch/cells.py builds for these cells
-# (a module the port has not taken yet): recsys :311, GAT :191; the rest
-# AdamWConfig's defaults.
-RECSYS_OPT = {"lr": 1e-3, "weight_decay": 0.0}
-GAT_OPT = {"lr": 5e-3, "weight_decay": 5e-4}
+# The recsys and GAT cells' optimizer settings (AdamWConfig's defaults
+# otherwise) come from the port's launch/cells.py: RECSYS_OPT, GAT_OPT.
 # [gnn-gat]'s learning gate: the reference's own learning test's optimizer
 # (tests/test_models.py:150-164), 30 steps at full_graph_sm.
 GAT_LEARN_OPT = {"lr": 1e-2, "weight_decay": 0.0, "schedule": "const"}
@@ -5177,6 +5255,7 @@ def recsys_train_setup(arch: str, dev, seed: int, size: int | None = None):
     ported pipeline's batches.  ``size``: DLRM's table cap, or the batch
     of MIND / BERT4Rec (default: the smoke's constants).  Returns (cfg,
     state, step_fn, data, schedule, batch, the cut as a sentence)."""
+    from repro_torch.launch import cells
     import torch
 
     from repro_torch.configs import base
@@ -5196,7 +5275,7 @@ def recsys_train_setup(arch: str, dev, seed: int, size: int | None = None):
     fns = zoo_fns(arch, cfg)
     g = torch.Generator(device=dev).manual_seed(seed + 961)
     params = fns["init"](g, cfg, device=dev)
-    opt_cfg = opt_mod.AdamWConfig(**RECSYS_OPT)
+    opt_cfg = opt_mod.AdamWConfig(**cells.RECSYS_OPT)
     step_fn = ts_mod.make_train_step(fns["loss"], opt_cfg)
     data = zoo_train_data(arch, cfg, b, seed + 962, dev)
     return (cfg, ts_mod.init_train_state(params), step_fn, data,
@@ -5212,6 +5291,7 @@ def recsys_path(arch: str, dev, card: str, seed: int) -> dict:
     ZOO_TRAIN_STEPS train steps at train_batch (cut to fit where
     printed): loss, grad_norm and lr finite, lr the schedule's.  Returns
     the launch counts (none: no kernel of the port runs here)."""
+    from repro_torch.launch import cells
     import torch
 
     from repro_torch.configs import base
@@ -5281,7 +5361,7 @@ def recsys_path(arch: str, dev, card: str, seed: int) -> dict:
     held = state_bytes(params)
     del params
     torch.cuda.empty_cache()
-    cells = "; ".join(
+    served = "; ".join(
         f"{k} {n:,} {'candidates' if k == 'retrieval_cand' else 'rows'} -> "
         f"{shape}: {step_stats(ms)}, {n / (statistics.median(ms) / 1e3):,.0f}"
         f" {'candidates' if k == 'retrieval_cand' else 'examples'}/s"
@@ -5289,7 +5369,7 @@ def recsys_path(arch: str, dev, card: str, seed: int) -> dict:
     chunk = (f" (serve_bulk scored in chunks of {BERT4REC_BULK_CHUNK:,} "
              f"users)" if arch == "bert4rec" else "")
     log(f"[{tag}] serving, cut: {cut}; weights {held / 1e9:.2f} GB from the "
-        f"seed in {init_s:.1f} s; {cells}{chunk}; retrieval vs serve on "
+        f"seed in {init_s:.1f} s; {served}{chunk}; retrieval vs serve on "
         f"{ZOO_RETR_CHECK} of the same candidates: relative L2 "
         f"{retr_err:.3g} (bound {ZOO_RETR_RTOL}); peak memory "
         f"{peak / 1e9:.2f} GB (max_memory_allocated); {card}")
@@ -5305,8 +5385,8 @@ def recsys_path(arch: str, dev, card: str, seed: int) -> dict:
     torch.cuda.empty_cache()
     counts = ops.launch_counts()
     log(f"[{tag}] train_batch, cut: {tcut}; {ZOO_TRAIN_STEPS} steps of {b:,}"
-        f" (AdamW lr {RECSYS_OPT['lr']}, weight decay "
-        f"{RECSYS_OPT['weight_decay']}, cells.py:311): losses "
+        f" (AdamW lr {cells.RECSYS_OPT['lr']}, weight decay "
+        f"{cells.RECSYS_OPT['weight_decay']}, cells.py:311): losses "
         f"{[round(r['loss'], 4) for r in rows_t]}, grad_norm "
         f"{[round(r['grad_norm'], 4) for r in rows_t]}, lr "
         f"{[r['lr'] for r in rows_t]} (each schedule_fn's); step "
@@ -5502,6 +5582,7 @@ def gnn_path(dev, card: str, seed: int, graphs: dict) -> dict:
     ZOO_TRAIN_STEPS steps at the GAT cells' optimizer (train_loop's
     gates).  ``graphs``: :func:`gnn_host_graphs`' futures.  Returns the
     launch counts (none)."""
+    from repro_torch.launch import cells
     import numpy as np
     import torch
 
@@ -5560,7 +5641,7 @@ def gnn_path(dev, card: str, seed: int, graphs: dict) -> dict:
     batch, host_s, kept = graphs["ogb_products"].result()
     batch = on_device(batch, dev)
     rows, ms, upd, peak, held = gat_steps(
-        "gnn-gat", cfg, gnn.gat_loss, batch, dev, seed + 984, GAT_OPT,
+        "gnn-gat", cfg, gnn.gat_loss, batch, dev, seed + 984, cells.GAT_OPT,
         ZOO_TRAIN_STEPS)
     cut = ("none" if kept == m["n_edges"] else
            f"edges {m['n_edges']:,} -> {kept:,} (a step at the published "
@@ -5570,7 +5651,8 @@ def gnn_path(dev, card: str, seed: int, graphs: dict) -> dict:
     log(f"[gnn-gat] ogb_products, cut: {cut}; {m['n_nodes']:,} nodes, "
         f"{kept:,} edges (padded to multiples of 512), {m['d_feat']} "
         f"features, {m['n_classes']} classes (graph {host_s:.1f} s on a "
-        f"host thread), {ZOO_TRAIN_STEPS} steps at {GAT_OPT} (cells.py:191): "
+        f"host thread), {ZOO_TRAIN_STEPS} steps at {cells.GAT_OPT} "
+        f"(cells.py:191): "
         f"{gat_line(rows, ms, upd, peak, held, m['n_nodes'], 'nodes')}; "
         f"{card}")
 
@@ -5583,7 +5665,7 @@ def gnn_path(dev, card: str, seed: int, graphs: dict) -> dict:
     cfg = spec.config.for_regime(m["d_feat"], m["n_classes"])
     torch.cuda.reset_peak_memory_stats(dev)
     state, step_fn, sched = gat_train(cfg, gnn.gat_loss, dev, seed + 986,
-                                      GAT_OPT)
+                                      cells.GAT_OPT)
     held = state_bytes(state)
     host, sizes, blocks = [], [], []
     for _ in range(ZOO_TRAIN_STEPS):
@@ -5614,13 +5696,13 @@ def gnn_path(dev, card: str, seed: int, graphs: dict) -> dict:
     g = torch.Generator(device=dev).manual_seed(seed + 987)
     batch = molecule_batch(m, g, dev)
     rows, ms, upd, peak, held = gat_steps(
-        "gnn-gat", cfg, gnn.gat_graph_loss, batch, dev, seed + 988, GAT_OPT,
-        ZOO_TRAIN_STEPS)
+        "gnn-gat", cfg, gnn.gat_graph_loss, batch, dev, seed + 988,
+        cells.GAT_OPT, ZOO_TRAIN_STEPS)
     log(f"[gnn-gat] molecule: {m['batch_graphs']} graphs of {m['n_nodes']} "
         f"nodes and {m['n_edges']} edges (padded to "
         f"{batch['features'].shape[0]:,} / "
         f"{batch['edge_index'].shape[1]:,}), {ZOO_TRAIN_STEPS} steps at "
-        f"{GAT_OPT}: "
+        f"{cells.GAT_OPT}: "
         f"{gat_line(rows, ms, upd, peak, held, m['batch_graphs'], 'graphs')}"
         f"; {card}")
     del batch

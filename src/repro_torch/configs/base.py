@@ -5,10 +5,15 @@ An architecture registers an :class:`ArchSpec` binding its exact published
 configuration, a reduced same-family smoke configuration and its shape
 cells.  :func:`get` and :func:`all_archs` load every config the port has:
 the five LM archs, the four recsys archs, the GAT and the MCGI datasets.
+:func:`all_archs` lists them in the order a fresh process registers them
+(config module by module, as :func:`_ensure_loaded` imports them),
+whichever config module an earlier import touched first.
 """
 from __future__ import annotations
 
 import dataclasses
+import importlib
+import sys
 from typing import Any
 
 # Step kinds a shape cell can lower.
@@ -47,12 +52,19 @@ class ArchSpec:
 
 
 _REGISTRY: dict[str, ArchSpec] = {}
+_MODULE_OF: dict[str, str] = {}     # arch id -> the config module's name
+# The config modules, in the order _ensure_loaded imports them.
+_CONFIG_MODULES = ("bert4rec", "deepfm", "deepseek_coder_33b",
+                   "deepseek_v2_lite_16b", "dlrm_mlperf", "gat_cora",
+                   "mcgi_datasets", "mind", "minicpm_2b", "qwen2_7b",
+                   "qwen3_moe_30b_a3b")
 
 
 def register(spec: ArchSpec) -> ArchSpec:
     if spec.arch_id in _REGISTRY:
         raise ValueError(f"{spec.arch_id} is registered already")
     _REGISTRY[spec.arch_id] = spec
+    _MODULE_OF[spec.arch_id] = sys._getframe(1).f_globals.get("__name__", "")
     return spec
 
 
@@ -66,24 +78,18 @@ def get(arch_id: str) -> ArchSpec:
 
 def all_archs() -> dict[str, ArchSpec]:
     _ensure_loaded()
-    return dict(_REGISTRY)
+    rank = {f"repro_torch.configs.{m}": i
+            for i, m in enumerate(_CONFIG_MODULES)}
+    # A stable sort: registration order within a module.
+    order = sorted(_REGISTRY, key=lambda a: rank.get(_MODULE_OF[a],
+                                                     len(rank)))
+    return {a: _REGISTRY[a] for a in order}
 
 
 def _ensure_loaded() -> None:
     # Importing a config module registers it (once: modules import once).
-    from repro_torch.configs import (  # noqa: F401
-        bert4rec,
-        deepfm,
-        deepseek_coder_33b,
-        deepseek_v2_lite_16b,
-        dlrm_mlperf,
-        gat_cora,
-        mcgi_datasets,
-        mind,
-        minicpm_2b,
-        qwen2_7b,
-        qwen3_moe_30b_a3b,
-    )
+    for m in _CONFIG_MODULES:
+        importlib.import_module(f"repro_torch.configs.{m}")
 
 
 def pad_to(n: int, multiple: int) -> int:

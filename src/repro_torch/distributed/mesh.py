@@ -5,7 +5,9 @@ The port is single-controller, as the reference is: one process drives
 every shard.  A :class:`ShardMesh` names the mesh's axes and sizes and the
 one device every shard lives on; shard ``s`` sits at the row-major
 coordinates of ``s`` in ``shape`` (the last axis fastest), which is the
-order in which the hedged merge composes shard ids.
+order in which the hedged merge composes shard ids.  ``device="meta"``
+gives a mesh for shapes only (the dry run's), as
+``models.layers.init_device`` does for parameters.
 """
 from __future__ import annotations
 
@@ -34,7 +36,9 @@ class ShardMesh:
         self.axis_names = axis_names
         self.shape = dict(zip(axis_names, shape))
         self.n_shards = math.prod(shape)
-        self.device: torch.device = resolve_device(device)
+        dev = torch.device(device)
+        self.device: torch.device = (dev if dev.type == "meta"
+                                     else resolve_device(dev))
 
 
 def make_mesh(shape, axis_names, device="cuda") -> ShardMesh:

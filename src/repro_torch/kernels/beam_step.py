@@ -53,16 +53,10 @@ def reset_launch_counts() -> None:
         launches[k] = 0
 
 
-def beam_walk_cuda(state, ctxs, adj, table, budgets, hop_limits, *, kind,
-                   max_hops: int, active_count: torch.Tensor | None = None):
-    """Walk every lane of ``state`` on the card, in place, until it freezes
-    or has taken ``max_hops`` hops in this call.
-
-    Shapes and dtypes as :func:`repro_torch.kernels.ref.beam_step_ref`;
-    ``budgets``/``hop_limits`` are (Q,) int32 (or broadcastable scalars).
-    ``active_count`` (one int32 on the card, optional) gains one for every
-    lane that can still move after the walk.  Returns ``state``.
-    """
+def check_walk_args(state, ctxs, adj, table, *, kind, max_hops: int,
+                    active_count: torch.Tensor | None = None):
+    """The walk kernel's argument checks (on the state's own device):
+    (Q, L, R, N, words, dim, K)."""
     if kind not in _KINDS:
         raise ValueError(f"unknown beam_step kind {kind!r}")
     if not 0 <= max_hops <= MAX_HOPS:
@@ -70,7 +64,6 @@ def beam_walk_cuda(state, ctxs, adj, table, budgets, hop_limits, *, kind,
                          f"{max_hops}")
     beam_ids, beam_d, beam_exp, visited, hops, evals = state
     dev = beam_ids.device
-    _build.check_card(dev, "beam_step")
     q, width = beam_ids.shape
     r = adj.shape[1]
     if width + r > _MAX_CANDIDATES:
@@ -85,24 +78,45 @@ def beam_walk_cuda(state, ctxs, adj, table, budgets, hop_limits, *, kind,
     _build.need(hops, "hops", torch.int32, (q,), dev)
     _build.need(evals, "evals", torch.int32, (q,), dev)
     _build.need(adj, "adj", torch.int32, (adj.shape[0], r), dev)
-    budgets = torch.as_tensor(budgets, dtype=torch.int32, device=dev)
-    budgets = budgets.expand(q).contiguous()
-    hop_limits = torch.as_tensor(hop_limits, dtype=torch.int32, device=dev)
-    hop_limits = hop_limits.expand(q).contiguous()
     dim = table.shape[1]
     if kind == "exact":
         k = 0
         _build.need(table, "table", torch.float32, (n, dim), dev)
         _build.need(ctxs, "ctxs", torch.float32, (q, dim), dev)
-        vec4 = int(dim % 4 == 0 and table.data_ptr() % 16 == 0
-                   and ctxs.data_ptr() % 16 == 0)
     else:
         k = ctxs.shape[-1]
         _build.need(table, "table", torch.uint8, (n, dim), dev)
         _build.need(ctxs, "ctxs", torch.float32, (q, dim, k), dev)
-        vec4 = int(dim * k % 4 == 0 and ctxs.data_ptr() % 16 == 0)
     if active_count is not None:
         _build.need(active_count, "active_count", torch.int32, (1,), dev)
+    return q, width, r, n, nw, dim, k
+
+
+def beam_walk_cuda(state, ctxs, adj, table, budgets, hop_limits, *, kind,
+                   max_hops: int, active_count: torch.Tensor | None = None):
+    """Walk every lane of ``state`` on the card, in place, until it freezes
+    or has taken ``max_hops`` hops in this call.
+
+    Shapes and dtypes as :func:`repro_torch.kernels.ref.beam_step_ref`;
+    ``budgets``/``hop_limits`` are (Q,) int32 (or broadcastable scalars).
+    ``active_count`` (one int32 on the card, optional) gains one for every
+    lane that can still move after the walk.  Returns ``state``.
+    """
+    beam_ids, beam_d, beam_exp, visited, hops, evals = state
+    dev = beam_ids.device
+    _build.check_card(dev, "beam_step")
+    q, width, r, n, nw, dim, k = check_walk_args(
+        state, ctxs, adj, table, kind=kind, max_hops=max_hops,
+        active_count=active_count)
+    budgets = torch.as_tensor(budgets, dtype=torch.int32, device=dev)
+    budgets = budgets.expand(q).contiguous()
+    hop_limits = torch.as_tensor(hop_limits, dtype=torch.int32, device=dev)
+    hop_limits = hop_limits.expand(q).contiguous()
+    if kind == "exact":
+        vec4 = int(dim % 4 == 0 and table.data_ptr() % 16 == 0
+                   and ctxs.data_ptr() % 16 == 0)
+    else:
+        vec4 = int(dim * k % 4 == 0 and ctxs.data_ptr() % 16 == 0)
     fn = LIB.fn()
     rc = fn(_KINDS[kind], q, width, r, nw, dim, k, vec4, max_hops,
             beam_ids.data_ptr(), beam_d.data_ptr(), beam_exp.data_ptr(),
@@ -123,6 +137,35 @@ def beam_walk_cuda(state, ctxs, adj, table, budgets, hop_limits, *, kind,
 
 
 
+def check_hop_rows_args(state, u, active, rows, ctxs, table, *, kind):
+    """The row-fed hop's argument checks (on the state's own device):
+    (Q, L, R, words, M, K); R, M and K are 0 for the select alone."""
+    if kind != "pq":
+        raise ValueError(f"the row-fed hop takes kind 'pq' only, got {kind!r}")
+    beam_ids, beam_d, beam_exp, visited, hops, evals = state
+    dev = beam_ids.device
+    q, width = beam_ids.shape
+    nw = visited.shape[1]
+    _build.need(beam_ids, "beam_ids", torch.int32, (q, width), dev)
+    _build.need(beam_d, "beam_d", torch.float32, (q, width), dev)
+    _build.need(beam_exp, "beam_exp", torch.bool, (q, width), dev)
+    _build.need(visited, "visited", torch.int32, (q, nw), dev)
+    _build.need(hops, "hops", torch.int32, (q,), dev)
+    _build.need(evals, "evals", torch.int32, (q,), dev)
+    r = m = k = 0
+    if active is not None:
+        r, m, k = rows.shape[1], table.shape[1], ctxs.shape[-1]
+        if width + r > _MAX_CANDIDATES:
+            raise ValueError(f"beam width + degree = {width + r} exceeds "
+                             f"{_MAX_CANDIDATES}")
+        _build.need(u, "u", torch.int32, (q,), dev)
+        _build.need(active, "active", torch.bool, (q,), dev)
+        _build.need(rows, "rows", torch.int32, (q, r), dev)
+        _build.need(ctxs, "ctxs", torch.float32, (q, m, k), dev)
+        _build.need(table, "table", torch.uint8, (table.shape[0], m), dev)
+    return q, width, r, nw, m, k
+
+
 def beam_hop_rows_cuda(state, u, active, rows, ctxs, table, budgets,
                        hop_limits, *, kind):
     """One row-fed hop of every lane on the card, in place (semantics of
@@ -135,35 +178,17 @@ def beam_hop_rows_cuda(state, u, active, rows, ctxs, table, budgets,
     ``table`` unused; only ``beam_exp`` is written).  Returns
     ``(state, u_next, active_next)``, the last two new (Q,) tensors.
     """
-    if kind != "pq":
-        raise ValueError(f"the row-fed hop takes kind 'pq' only, got {kind!r}")
     beam_ids, beam_d, beam_exp, visited, hops, evals = state
     dev = beam_ids.device
     _build.check_card(dev, "beam_step")
-    q, width = beam_ids.shape
-    nw = visited.shape[1]
-    _build.need(beam_ids, "beam_ids", torch.int32, (q, width), dev)
-    _build.need(beam_d, "beam_d", torch.float32, (q, width), dev)
-    _build.need(beam_exp, "beam_exp", torch.bool, (q, width), dev)
-    _build.need(visited, "visited", torch.int32, (q, nw), dev)
-    _build.need(hops, "hops", torch.int32, (q,), dev)
-    _build.need(evals, "evals", torch.int32, (q,), dev)
+    q, width, r, nw, m, k = check_hop_rows_args(state, u, active, rows, ctxs,
+                                                table, kind=kind)
     budgets = torch.as_tensor(budgets, dtype=torch.int32, device=dev)
     budgets = budgets.expand(q).contiguous()
     hop_limits = torch.as_tensor(hop_limits, dtype=torch.int32, device=dev)
     hop_limits = hop_limits.expand(q).contiguous()
-    r = m = k = 0
     ptrs = [None] * 5
     if active is not None:
-        r, m, k = rows.shape[1], table.shape[1], ctxs.shape[-1]
-        if width + r > _MAX_CANDIDATES:
-            raise ValueError(f"beam width + degree = {width + r} exceeds "
-                             f"{_MAX_CANDIDATES}")
-        _build.need(u, "u", torch.int32, (q,), dev)
-        _build.need(active, "active", torch.bool, (q,), dev)
-        _build.need(rows, "rows", torch.int32, (q, r), dev)
-        _build.need(ctxs, "ctxs", torch.float32, (q, m, k), dev)
-        _build.need(table, "table", torch.uint8, (table.shape[0], m), dev)
         ptrs = [t.data_ptr() for t in (u, active, rows, ctxs, table)]
     u_next = torch.empty((q,), dtype=torch.int32, device=dev)
     active_next = torch.empty((q,), dtype=torch.bool, device=dev)

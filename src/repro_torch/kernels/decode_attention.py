@@ -46,14 +46,11 @@ def num_splits(b: int, hkv: int, s: int, d: int) -> int:
     return sp
 
 
-def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          kv_len: torch.Tensor) -> torch.Tensor:
-    """q (B, Hq, d); k, v (B, S, Hkv, d) bfloat16; kv_len (B,) integer, all
-    on the card -> (B, Hq, d) float32.  Only a bfloat16 cache, the LM
-    path's, is built for the card; the plain version takes any float type
-    on the CPU."""
+def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               kv_len: torch.Tensor):
+    """The kernel's argument checks (on the cache's own device): (q as
+    contiguous float32, kv_len as contiguous int32, (B, S, Hq, Hkv, d))."""
     dev = k.device
-    _build.check_card(dev, "decode_attention")
     if q.dim() != 3 or k.dim() != 4:
         raise ValueError(f"decode_attention takes q (B, Hq, d) and k, v "
                          f"(B, S, Hkv, d), got {tuple(q.shape)} and "
@@ -79,6 +76,25 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.need(k, "k", torch.bfloat16, (b, s, hkv, d), dev)
     _build.need(v, "v", torch.bfloat16, (b, s, hkv, d), dev)
     _build.need(lens, "kv_len", torch.int32, (b,), dev)
+    return qf, lens, (b, s, hq, hkv, d)
+
+
+def decode_attention_meta(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          kv_len: torch.Tensor) -> torch.Tensor:
+    """The kernel's output for meta inputs: shapes only, no launch."""
+    _, _, (b, _, hq, _, d) = check_args(q, k, v, kv_len)
+    return torch.empty((b, hq, d), dtype=torch.float32, device=k.device)
+
+
+def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          kv_len: torch.Tensor) -> torch.Tensor:
+    """q (B, Hq, d); k, v (B, S, Hkv, d) bfloat16; kv_len (B,) integer, all
+    on the card -> (B, Hq, d) float32.  Only a bfloat16 cache, the LM
+    path's, is built for the card; the plain version takes any float type
+    on the CPU."""
+    dev = k.device
+    _build.check_card(dev, "decode_attention")
+    qf, lens, (b, s, hq, hkv, d) = check_args(q, k, v, kv_len)
     if k.data_ptr() % 16 or v.data_ptr() % 16:
         raise ValueError("decode_attention: k and v must start on a 16-byte "
                          "boundary")

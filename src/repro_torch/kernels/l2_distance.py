@@ -27,11 +27,9 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 launches = {"l2_distance": 0}
 
 
-def l2_distance_cuda(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """(Q, D) x (N, D) -> (Q, N) float32 squared L2 on the card.  Both
-    operands float32, or both bfloat16 (accumulated in float32)."""
+def check_args(q: torch.Tensor, x: torch.Tensor) -> tuple[int, int]:
+    """The kernel's argument checks (on its tensors' own device): (Q, N)."""
     dev = q.device
-    _build.check_card(dev, "l2_distance")
     if q.dim() != 2 or x.dim() != 2 or q.shape[1] != x.shape[1]:
         raise ValueError(f"l2_distance: shapes {tuple(q.shape)} and "
                          f"{tuple(x.shape)} are not (Q, D) and (N, D)")
@@ -39,9 +37,24 @@ def l2_distance_cuda(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"l2_distance takes float32 or bfloat16 operands of "
                          f"one type, got {q.dtype} and {x.dtype}")
     nq, d = q.shape
-    n = x.shape[0]
     _build.need(q, "q", q.dtype, (nq, d), dev)
-    _build.need(x, "x", q.dtype, (n, d), dev)
+    _build.need(x, "x", q.dtype, (x.shape[0], d), dev)
+    return nq, x.shape[0]
+
+
+def l2_distance_meta(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The kernel's output for meta operands: shapes only, no launch."""
+    nq, n = check_args(q, x)
+    return torch.empty((nq, n), dtype=torch.float32, device=q.device)
+
+
+def l2_distance_cuda(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """(Q, D) x (N, D) -> (Q, N) float32 squared L2 on the card.  Both
+    operands float32, or both bfloat16 (accumulated in float32)."""
+    dev = q.device
+    _build.check_card(dev, "l2_distance")
+    nq, n = check_args(q, x)
+    d = q.shape[1]
     out = torch.empty((nq, n), dtype=torch.float32, device=dev)
     if nq == 0 or n == 0:
         return out

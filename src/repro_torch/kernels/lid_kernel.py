@@ -23,16 +23,28 @@ LIB = _build.Library("lid_kernel", "repro_lid_estimate",
 launches = {"lid_estimate": 0}
 
 
+def check_args(knn_d2: torch.Tensor) -> tuple[int, int]:
+    """The kernel's argument checks (on its tensor's own device): (B, k)."""
+    if knn_d2.dim() != 2 or knn_d2.shape[1] < 1:
+        raise ValueError(f"lid_estimate takes a (B, k >= 1) matrix, got "
+                         f"{tuple(knn_d2.shape)}")
+    b, k = knn_d2.shape
+    _build.need(knn_d2, "knn_d2", torch.float32, (b, k), knn_d2.device)
+    return b, k
+
+
+def lid_estimate_meta(knn_d2: torch.Tensor) -> torch.Tensor:
+    """The kernel's output for a meta input: shapes only, no launch."""
+    b, _ = check_args(knn_d2)
+    return torch.empty((b,), dtype=torch.float32, device=knn_d2.device)
+
+
 def lid_estimate_cuda(knn_d2: torch.Tensor) -> torch.Tensor:
     """(B, k) ascending squared k-NN distances (float32, on the card) ->
     (B,) LID estimates."""
     dev = knn_d2.device
     _build.check_card(dev, "lid_estimate")
-    if knn_d2.dim() != 2 or knn_d2.shape[1] < 1:
-        raise ValueError(f"lid_estimate takes a (B, k >= 1) matrix, got "
-                         f"{tuple(knn_d2.shape)}")
-    b, k = knn_d2.shape
-    _build.need(knn_d2, "knn_d2", torch.float32, (b, k), dev)
+    b, k = check_args(knn_d2)
     out = torch.empty((b,), dtype=torch.float32, device=dev)
     if b == 0:
         return out

@@ -5,8 +5,19 @@ PyTorch version (:mod:`repro_torch.kernels.ref`); a tensor on a CUDA device
 launches the hand-written kernel, which raises if it cannot build or launch
 or the card is not sm_90.  Nothing falls back from the kernel to the plain
 version.  Library code calls these wrappers only.
+
+Inside :func:`shapes_only` a tensor on the ``meta`` device takes each
+kernel's shape function (``*_meta`` beside each ``*_cuda``; the walk's
+argument checks for ``beam_step``): the checks the CUDA wrapper makes,
+then ``torch.empty`` outputs of the kernel's shapes and dtypes (the walk
+returns its state, which it would update in place).  It computes nothing
+and counts no launch; it counts the call in :func:`shape_calls` instead.
+Outside that mode a meta tensor raises, as any device other than the
+card and the CPU does.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -26,8 +37,37 @@ LIBRARIES = (_beam.LIB, _l2.LIB, _topk.LIB, _lid.LIB, _pq.LIB, _da.LIB)
 _COUNTED = (_l2, _topk, _lid, _pq, _da)
 
 
+# Kernel calls answered by shape functions since the last reset (the dry
+# run's record of the kernels a step reached; never a launch).
+_shape_calls: dict[str, int] = {}
+_shapes_only = 0
+
+
+@contextlib.contextmanager
+def shapes_only():
+    """Let the wrappers take meta tensors (shapes only) inside the block."""
+    global _shapes_only
+    _shapes_only += 1
+    try:
+        yield
+    finally:
+        _shapes_only -= 1
+
+
+def shape_calls() -> dict[str, int]:
+    """Calls per kernel answered on the meta device (not launches)."""
+    return dict(_shape_calls)
+
+
+def reset_shape_calls() -> None:
+    _shape_calls.clear()
+
+
 def _device(t: torch.Tensor, op: str) -> torch.device:
-    if t.device.type not in ("cuda", "cpu"):
+    kind = t.device.type
+    if kind == "meta" and _shapes_only:
+        _shape_calls[op] = _shape_calls.get(op, 0) + 1
+    elif kind not in ("cuda", "cpu"):
         raise ValueError(f"{op} has no implementation for device {t.device}")
     return t.device
 
@@ -35,14 +75,20 @@ def _device(t: torch.Tensor, op: str) -> torch.device:
 def bulk_l2(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """(Q, D) x (N, D) -> (Q, N) float32 squared L2 (float32 or bfloat16
     operands, accumulated in float32)."""
-    if _device(q, "bulk_l2").type == "cuda":
+    kind = _device(q, "l2_distance").type
+    if kind == "cuda":
         return _l2.l2_distance_cuda(q, x)
+    if kind == "meta":
+        return _l2.l2_distance_meta(q, x)
     return _ref.l2_distance_ref(q, x)
 
 
 def _topk_forward(d: torch.Tensor, k: int):
-    if _device(d, "topk").type == "cuda":
+    kind = _device(d, "topk").type
+    if kind == "cuda":
         return _topk.topk_cuda(d, k)
+    if kind == "meta":
+        return _topk.topk_meta(d, k)
     _topk.check_k(k, d.shape[1])
     return _ref.topk_ref(d, k)
 
@@ -81,16 +127,22 @@ def topk(d: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
 
 def lid_estimate(knn_d2: torch.Tensor) -> torch.Tensor:
     """(B, k) ascending squared k-NN distances -> (B,) Hill LID."""
-    if _device(knn_d2, "lid_estimate").type == "cuda":
+    kind = _device(knn_d2, "lid_estimate").type
+    if kind == "cuda":
         return _lid.lid_estimate_cuda(knn_d2)
+    if kind == "meta":
+        return _lid.lid_estimate_meta(knn_d2)
     return _ref.lid_ref(knn_d2)
 
 
 def pq_bulk_scan(luts: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     """(Q, M, K) float32 LUTs x (N, M) uint8 codes -> (Q, N) ADC distances,
     summed in m order."""
-    if _device(luts, "pq_bulk_scan").type == "cuda":
+    kind = _device(luts, "pq_scan").type
+    if kind == "cuda":
         return _pq.pq_scan_cuda(luts, codes)
+    if kind == "meta":
+        return _pq.pq_scan_meta(luts, codes)
     return _ref.pq_scan_ref(luts, codes)
 
 
@@ -99,8 +151,11 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Flash-decoding GQA attention: q (B, Hq, d) against k, v
     (B, S, Hkv, d) masked at kv_len (B,) -> (B, Hq, d) float32; kv_len = 0
     gives zeros and kv_len > S counts as S on every device."""
-    if _device(k, "decode_attention").type == "cuda":
+    kind = _device(k, "decode_attention").type
+    if kind == "cuda":
         return _da.decode_attention_cuda(q, k, v, kv_len)
+    if kind == "meta":
+        return _da.decode_attention_meta(q, k, v, kv_len)
     return _ref.decode_attention_gqa_ref(q, k, v, kv_len)
 
 
@@ -124,13 +179,15 @@ def beam_walk(state, ctxs, adj, table, budgets, hop_limits, *, kind: str,
     Callers use the return value either way.  ``active_count`` (one int32,
     optional) gains one for each lane that can still move after the walk.
     """
-    dev = state[0].device
+    dev = _device(state[0], f"beam_step.{kind}")
     if dev.type == "cuda":
         return _beam.beam_walk_cuda(state, ctxs, adj, table, budgets,
                                     hop_limits, kind=kind, max_hops=max_hops,
                                     active_count=active_count)
-    if dev.type != "cpu":
-        raise ValueError(f"beam_step has no implementation for device {dev}")
+    if dev.type == "meta":
+        _beam.check_walk_args(state, ctxs, adj, table, kind=kind,
+                              max_hops=max_hops, active_count=active_count)
+        return state
     out, active = _ref.beam_walk_ref(state, ctxs, adj, table, budgets,
                                      hop_limits, kind=kind,
                                      max_hops=max_hops)
@@ -151,12 +208,15 @@ def beam_hop_rows(state, u, active, rows, ctxs, table, budgets, hop_limits,
     (new tensors).  Callers use the return value either way."""
     if kind != "pq":
         raise ValueError(f"the row-fed hop takes kind 'pq' only, got {kind!r}")
-    dev = state[0].device
+    dev = _device(state[0], "beam_step.pq_rows")
     if dev.type == "cuda":
         return _beam.beam_hop_rows_cuda(state, u, active, rows, ctxs, table,
                                         budgets, hop_limits, kind=kind)
-    if dev.type != "cpu":
-        raise ValueError(f"beam_step has no implementation for device {dev}")
+    if dev.type == "meta":
+        q = _beam.check_hop_rows_args(state, u, active, rows, ctxs, table,
+                                      kind=kind)[0]
+        return (state, torch.empty((q,), dtype=torch.int32, device=dev),
+                torch.empty((q,), dtype=torch.bool, device=dev))
     return _ref.beam_hop_rows_ref(state, u, active, rows, ctxs, table,
                                   budgets, hop_limits, kind=kind)
 

@@ -29,11 +29,11 @@ MAX_K = 256
 launches = {"pq_scan": 0}
 
 
-def pq_scan_cuda(luts: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
-    """(Q, M, K) float32 LUTs x (N, M) uint8 codes on the card -> (Q, N)
-    float32 ADC distances (codes must lie below K)."""
+def check_args(luts: torch.Tensor, codes: torch.Tensor
+               ) -> tuple[int, int, int, int]:
+    """The kernel's argument checks (on its tensors' own device): (Q, N, M,
+    K)."""
     dev = luts.device
-    _build.check_card(dev, "pq_scan")
     if luts.dim() != 3 or codes.dim() != 2:
         raise ValueError(f"pq_scan takes (Q, M, K) LUTs and (N, M) codes, "
                          f"got {tuple(luts.shape)} and {tuple(codes.shape)}")
@@ -43,6 +43,21 @@ def pq_scan_cuda(luts: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"pq_scan supports 1 <= K <= {MAX_K}, got K={k}")
     _build.need(luts, "luts", torch.float32, (q, m, k), dev)
     _build.need(codes, "codes", torch.uint8, (n, m), dev)
+    return q, n, m, k
+
+
+def pq_scan_meta(luts: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """The kernel's output for meta inputs: shapes only, no launch."""
+    q, n, _, _ = check_args(luts, codes)
+    return torch.empty((q, n), dtype=torch.float32, device=luts.device)
+
+
+def pq_scan_cuda(luts: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """(Q, M, K) float32 LUTs x (N, M) uint8 codes on the card -> (Q, N)
+    float32 ADC distances (codes must lie below K)."""
+    dev = luts.device
+    _build.check_card(dev, "pq_scan")
+    q, n, m, k = check_args(luts, codes)
     if codes.data_ptr() % 16:
         raise ValueError("pq_scan: codes must start on a 16-byte boundary")
     out = torch.empty((q, n), dtype=torch.float32, device=dev)

@@ -63,16 +63,29 @@ def warp_slots(k: int) -> int:
     return slots
 
 
+def check_args(d: torch.Tensor, k: int) -> tuple[int, int]:
+    """The kernel's argument checks (on its tensor's own device): (Q, N)."""
+    if d.dim() != 2:
+        raise ValueError(f"topk takes a (Q, N) matrix, got {tuple(d.shape)}")
+    q, n = d.shape
+    check_k(k, n)
+    _build.need(d, "d", torch.float32, (q, n), d.device)
+    return q, n
+
+
+def topk_meta(d: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's outputs for a meta input: shapes only, no launch."""
+    q, _ = check_args(d, k)
+    return (torch.empty((q, k), dtype=torch.float32, device=d.device),
+            torch.empty((q, k), dtype=torch.int32, device=d.device))
+
+
 def topk_cuda(d: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     """(Q, N) float32 on the card -> ((Q, k) ascending values, (Q, k) int32
     ids); ties go to the lower id."""
     dev = d.device
     _build.check_card(dev, "topk")
-    if d.dim() != 2:
-        raise ValueError(f"topk takes a (Q, N) matrix, got {tuple(d.shape)}")
-    q, n = d.shape
-    check_k(k, n)
-    _build.need(d, "d", torch.float32, (q, n), dev)
+    q, n = check_args(d, k)
     out_v = torch.empty((q, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((q, k), dtype=torch.int32, device=dev)
     if q == 0:

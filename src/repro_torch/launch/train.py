@@ -96,11 +96,12 @@ def train_config(arch: str, lr: float, steps: int):
     """The optimizer config the launcher trains ``arch`` with: WSD for
     minicpm (its paper's schedule), cosine otherwise; warmup
     max(steps // 20, 5)."""
+    from repro_torch.launch.cells import lm_schedule
     from repro_torch.training import optimizer as opt_mod
 
     return opt_mod.AdamWConfig(
         lr=lr, total_steps=steps, warmup_steps=max(steps // 20, 5),
-        schedule="wsd" if "minicpm" in arch else "cosine")
+        schedule=lm_schedule(arch))
 
 
 if __name__ == "__main__":

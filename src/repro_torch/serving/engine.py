@@ -677,6 +677,24 @@ class _InFlight:
     walk_prefetch: Any = None  # future of the first-frontier adjacency reads
 
 
+# Memory cached for an engine's partial stream when the engine is built.
+# The caching allocator keeps a pool per stream, so a cold stream's first
+# allocation is a cudaMalloc, and that waited for the card's queued work:
+# a cold engine's first partial came back only when the continue it
+# hedges did.  One small and one large cached block let a partial
+# allocate without it.
+PARTIAL_RESERVE_BYTES = (512 << 10, 64 << 20)
+
+
+def _reserve(stream, dev) -> None:
+    """Allocate and free PARTIAL_RESERVE_BYTES on ``stream``: the blocks
+    stay cached in its pool."""
+    with torch.cuda.stream(stream):
+        blocks = [torch.empty(n, dtype=torch.uint8, device=dev)
+                  for n in PARTIAL_RESERVE_BYTES]
+        del blocks
+
+
 class SearchEngine:
     """One serving API over the backends, with a double-buffered pipeline.
 
@@ -707,6 +725,8 @@ class SearchEngine:
         cuda = dev.type == "cuda"
         self._stream = torch.cuda.Stream(dev) if cuda else None
         self._partial_stream = torch.cuda.Stream(dev) if cuda else None
+        if cuda:
+            _reserve(self._partial_stream, dev)
 
     # ------------------------------------------------------------- serving
 

@@ -914,3 +914,40 @@ def test_begin_and_partial_do_not_wait_for_the_walk_on_card(cuda):
     np.testing.assert_array_equal(part.d2, want_part.d2)
     np.testing.assert_array_equal(full.ids, want.ids)
     np.testing.assert_array_equal(full.d2, want.d2)
+
+
+@pytest.mark.gpu
+def test_partial_of_a_cold_engine_does_not_wait_for_the_walk_on_card(cuda):
+    """An engine that has served nothing: its first ``begin`` queued behind
+    a busy stream, then a sleep kernel four times as long (about 200 ms)
+    holding the continue; its first partial (the partial stream's first
+    allocations) must come back more than 100 ms before the held
+    continue's result, bit-identical to a warm engine's partial and search
+    of the same lanes."""
+    q = _world("cuda")[1][:8]
+    warm = _engine("tiered", device="cuda")
+    want = warm.search(q)
+    want_part = warm.partial_result(warm.begin(q))
+    torch.cuda.synchronize()
+    eng = _engine("tiered", device="cuda")
+    with torch.cuda.stream(eng._stream):
+        torch.cuda._sleep(SLEEP_CYCLES)               # the stream is busy
+    f = eng.begin(q)
+    with torch.cuda.stream(eng._stream):
+        torch.cuda._sleep(4 * SLEEP_CYCLES)           # holds the continue
+    done = []
+    t = threading.Thread(
+        target=lambda: done.append((eng.finish_from(f), time.perf_counter())))
+    t.start()
+    part = eng.partial_result(f)
+    t_part = time.perf_counter()
+    t.join(timeout=120)
+    assert not t.is_alive()
+    full, t_full = done[0]
+    print(f"cold engine: partial {1e3 * (t_full - t_part):.1f} ms before "
+          f"the held continue's result")
+    assert t_full - t_part > 0.1
+    np.testing.assert_array_equal(part.ids, want_part.ids)
+    np.testing.assert_array_equal(part.d2, want_part.d2)
+    np.testing.assert_array_equal(full.ids, want.ids)
+    np.testing.assert_array_equal(full.d2, want.d2)
