@@ -142,7 +142,8 @@ Phases, each printed on its own lines; any failure exits non-zero:
    65,536-node hot tier for two pipelined passes (promotions drained
    between them; the second open must reuse the store, mtime unchanged);
    a store packed by ``block_layout(nodes_per_block=4)`` (four records a
-   4 KiB page); and ``save_index(version=2)`` + ``load_index`` on the card
+   4 KiB page; the stream's first 5 batches, a cut for time, printed);
+   and ``save_index(version=2)`` + ``load_index`` on the card
    (every array equal) served through ``load_slow_tier``.  Every run's ids
    and d2 must equal the in-memory tiered run's bit for bit; each prints
    QPS, batch p50 / p99, recall@10, hit rate, blocks read, I/O blocks per
@@ -153,8 +154,9 @@ Phases, each printed on its own lines; any failure exits non-zero:
    ``OutOfCoreBackend`` (only the PQ codes, codebook and entry on the
    card; adjacency and vectors read from the block store, LRU 4,096 + 256
    pins) serving the stream pipelined and per batch over the node-order
-   store, pipelined over the packed store, and one fixed-beam batch at
-   beam 128; every run's ids, d2, hops and granted budgets must equal the
+   store, pipelined over the packed store (the stream's first 5 batches, a
+   cut for time, printed), and one fixed-beam batch at beam 128; every
+   run's ids, d2, hops and granted budgets must equal the
    in-memory tiered run's bit for bit, ``beam_step.pq_rows`` must launch
    and ``beam_step.pq`` must not, and the backend must hold no (N, R) or
    (N, D) tensor.  Each run prints QPS, batch p50 / p99, host hops a
@@ -165,16 +167,17 @@ Phases, each printed on its own lines; any failure exits non-zero:
    first, ``torch.profiler`` over one batch gives the row-fed kernel's
    device ms per launch (printed beside each run's host ms a host hop)
    and the device's busy share;
-3f. [live] the write path at phase 3's data: ``LiveIndex`` over the first
-   990,000 rows (``build_online_mcgi``: the bootstrap through
+3f. [live] the write path at the first 100,000 of phase 3's rows (a cut
+   for time from all 1M, printed): ``LiveIndex`` over the first 99,000
+   (``build_online_mcgi``: the bootstrap through
    ``l2_distance`` + ``topk``, the rewire walks through ``beam_step``
    exact; a PQ tier; a block store of 4 records a page in a temporary
    directory; the budget law of phase 3), the stream's first 5 batches
    served one ``LiveIndex.search`` a batch (each stage serves these 5 of
-   the 10 batches, a cut for time, printed); the last 10,000
-   rows inserted in 10 calls of 1,000, each then found at rank 0 with
-   d2 = 0, and the stage served against phase 3's ground truth; 10,000
-   base ids tombstoned (drawn from --seed), the stage served and the whole
+   the 10 batches, a cut for time, printed); the last 1,000 of the
+   100,000 rows inserted in 10 calls of 100, each then found at rank 0
+   with d2 = 0, and the stage served against the ground truth over the
+   100,000 rows; 1,000 base ids tombstoned (drawn from --seed), the stage served and the whole
    stream walked by ``DeltaTier.search_exact``; ``merge_async`` while the
    main thread serves the stream at half its closed-loop load; the stage
    at the merge boundary; ``save`` and ``load_lineage``.  Fails if a deleted
@@ -190,11 +193,15 @@ Phases, each printed on its own lines; any failure exits non-zero:
    closed loop's load: each batch is followed by a pause as long as it
    took);
 3h. [dist] distributed MCGI at phase 3's data: the 1M rows in 8 shards of
-   125,000 on a (2, 4) ("data", "model") mesh on the card, shard s owning
-   rows [125,000 s, 125,000 (s + 1)) (``build_sharded_arrays``: one
-   ``build_with_alpha`` a shard at the config's R and L_build, static
-   alpha 1.2, PQ m=16 over the whole collection; the rewire walks through
-   ``beam_step`` exact); the stream served staged (the config's law, 4
+   125,000 on a (2, 4) ("data", "model") mesh over every visible card (in
+   contiguous blocks; one card holds all 8), shard s owning rows
+   [125,000 s, 125,000 (s + 1)) on its card, each shard's walks on a
+   stream of its own (``build_sharded_arrays``: one ``build_with_alpha``
+   a shard on its card at the config's R and L_build, static alpha 1.2,
+   PQ m=16 trained once; the rewire walks through ``beam_step`` exact);
+   the cards, each shard's card and the GB on each card printed; one check
+   batch whose every shard's top-k must equal, bit for bit, that shard's
+   walk run alone on its card's default stream; the stream served staged (the config's law, 4
    budget buckets, hierarchical merge; pipelined and per batch), by the
    monolithic adaptive step (an engine with no budget config) and by a
    fixed-beam monolithic step at l_search; ``distributed_search`` with
@@ -213,9 +220,13 @@ Phases, each printed on its own lines; any failure exits non-zero:
    equal the scalar law bit for bit, every door lane equals a direct
    search and none holds the dead shard's ids after the flip, no
    partials are offered, ``begin`` waits for nothing, and ``beam_step``
-   pq and exact, ``l2_distance`` and ``topk`` launched on the path.
-   Prints each shard's build seconds, each run's QPS and batch p50 /
-   p99, mean granted budget and hops a query, the hierarchical merge's
+   pq and exact, ``l2_distance`` and ``topk`` launched on the path; with
+   two cards or more, ``beam_step`` exact and pq launched once on the last
+   card while the first is current must equal ``beam_step_ref`` bit for
+   bit on integer data.  Prints each shard's build seconds, each run's
+   QPS and batch p50 / p99 (staged and monolithic beside the serial
+   one-stream walk's 30.7 / 23.8 ms a batch, not gated), mean granted
+   budget and hops a query, the hierarchical merge's
    stream ms a batch (CUDA events around it, the host's launch gaps
    included) and one merge's device ms (queued behind a sleep kernel), each
    shard's fitted law and the fit's seconds;
@@ -477,8 +488,13 @@ ZOO_ATTN_STEPS = (0, ZOO_PROMPT + ZOO_GEN - 2)
 # the CPU shows 1.1e-2 at 3 layers and 1.8e-2 at 27 (width 256).
 MLA_FORM_REL_L2 = 5e-2
 F32_LAYERS = 4                         # MoE prefill gate: a float32 copy
-LIVE_INSERTS, LIVE_INSERT_CALLS = 10_000, 10     # [live]: the last 10k rows
-LIVE_DELETES = 10_000
+# [live] runs on the first 100,000 of phase 3's rows (a cut for time: its
+# online build and its merge scale with the rows, and took 280 s of the
+# smoke at 990,000; at 250,000 the smoke still took 940.1 s); the last
+# 1,000 of them are inserted.
+LIVE_ROWS = 100_000
+LIVE_INSERTS, LIVE_INSERT_CALLS = 1_000, 10
+LIVE_DELETES = 1_000
 # [live]'s four stages each serve the stream's first 5 batches (5,000
 # queries; cut from all 10 for time); the merge's traffic and
 # the self-queries are not cut.
@@ -486,10 +502,17 @@ LIVE_STAGE_BATCHES = 5
 LIVE_RECALL_FLOOR = 0.75
 LIVE_SELF_FLOOR = 0.9     # self-queries the walk finds after the merge
 LIVE_MERGE_DUTY = 0.5     # share of the merge's time spent serving
+# The time limit for the whole run, and the ceiling a run is held to:
+# host-paced phases move 20-40% between processes.
+SMOKE_LIMIT_S, SMOKE_CEILING_S = 1200, 900
 DIST_MESH, DIST_AXES = (2, 4), ("data", "model")    # [dist]: 8 shards
 DIST_ALPHA = 1.2          # the reference's static alpha for shard builds
 DIST_DEAD = 3             # the shard dropped mid-stream
 DIST_DOOR_LANES, DIST_DOOR_GROUPS = 8, 32           # 256 single requests
+# [dist]'s batch p50 (ms), staged per batch and monolithic, when its
+# shards walked one after another on one stream of an H100 80GB HBM3 at
+# 700 W (PERF.md section 5); printed beside this run's, not gated.
+DIST_SERIAL_MS = (30.7, 23.8)
 
 
 def sift1m():
@@ -2578,6 +2601,18 @@ def door_path(world, card: str, seed: int) -> dict:
 
 # --------------------------------------------------------------- phase 3d
 
+# The packed-store runs of [disk] and [ooc] serve the stream's first 5
+# batches (a cut for time: the packed store reads about 3x the blocks a
+# query, and the two runs took 87 s of the smoke at all 10).
+PACKED_BATCHES = 5
+
+
+def packed_cut(world) -> dict:
+    """``world`` with the stream cut to its first ``PACKED_BATCHES``."""
+    return dict(world, batches=world["batches"][:PACKED_BATCHES],
+                gts=world["gts"][:PACKED_BATCHES])
+
+
 def disk_served(name, engine, tier, world, want, pipelined: bool) -> dict:
     """Serve phase 3's stream with the slow tier on disk; every batch's ids
     and d2 must equal the in-memory tiered run's bit for bit.  Prints the
@@ -2699,9 +2734,11 @@ def disk_path(world, tmp: str) -> tuple[dict, dict]:
             f"4 KiB page) in {t_layout:.2f}s; packed store "
             f"{os.path.getsize(packed_path)} bytes written in "
             f"{time.perf_counter() - t0:.2f}s")
+        log(f"[disk] packed store cut for time: {PACKED_BATCHES} of the "
+            f"stream's {len(world['batches'])} batches")
         runs["packed"] = disk_served("packed 4 a page, pipelined",
-                                     tier_engine(packed), packed, world,
-                                     want, True)
+                                     tier_engine(packed), packed,
+                                     packed_cut(world), want, True)
         log(f"[disk] io_blocks/query: node order "
             f"{runs['pipelined']['io_blocks_per_query']:.2f}, packed "
             f"{runs['packed']['io_blocks_per_query']:.2f}")
@@ -2934,8 +2971,9 @@ def ooc_path(world, stores: dict, card: str) -> dict:
     """[ooc]: the out-of-core walk at phase 3's 1M index.  The in-memory
     tiered results first (pipelined adaptive, and one fixed-beam batch),
     then the stream through ``OutOfCoreBackend`` over [disk]'s node-order
-    store pipelined and per batch, over its packed store pipelined, and the
-    fixed-beam batch, each bit-identical to the in-memory run.  Returns the
+    store pipelined and per batch, over its packed store pipelined (the
+    first ``PACKED_BATCHES`` batches), and the fixed-beam batch, each
+    bit-identical to the in-memory run.  Returns the
     launch counts of the out-of-core runs."""
     from repro_torch import serving
     from repro_torch.index import BlockSlowTier, BlockStore, entry_proximal_ids
@@ -2989,10 +3027,12 @@ def ooc_path(world, stores: dict, card: str) -> dict:
                 "per_batch": ooc_served("node order, per batch", eng, tally,
                                         world, want, False, card, dev_ms)}
         packed, ptally = backend(stores["packed"])
+        log(f"[ooc] packed store cut for time: {PACKED_BATCHES} of the "
+            f"stream's {len(world['batches'])} batches")
         runs["packed"] = ooc_served(
             "packed 4 a page, pipelined",
-            serving.SearchEngine(packed, budget, k=cfg.k), ptally, world,
-            want, True, card, dev_ms)
+            serving.SearchEngine(packed, budget, k=cfg.k), ptally,
+            packed_cut(world), want, True, card, dev_ms)
         one = dict(world, batches=world["batches"][:1], gts=world["gts"][:1])
         runs["fixed"] = ooc_served(
             "fixed beam 128, one batch",
@@ -3069,12 +3109,13 @@ def live_gt(x, live_rows, queries, k: int):
     return np.asarray(live_rows)[pos.cpu().numpy()]
 
 
-def live_path(world, tmp: str, card: str, seed: int,
+def live_path(world, tmp: str, card: str, seed: int, rows: int = LIVE_ROWS,
               inserts: int = LIVE_INSERTS, deletes: int = LIVE_DELETES
               ) -> dict:
-    """[live]: the write path at phase 3's data.  ``LiveIndex`` over the
-    first N - ``inserts`` rows (online build, PQ tier, a packed block store
-    in ``tmp``), the stream served; the last ``inserts`` rows inserted in
+    """[live]: the write path at the first ``rows`` of phase 3's rows.
+    ``LiveIndex`` over the first ``rows`` - ``inserts`` of them (online
+    build, PQ tier, a packed block store in ``tmp``), the stream served;
+    the last ``inserts`` rows inserted in
     ``LIVE_INSERT_CALLS`` calls and each found at rank 0 with d2 = 0; the
     stream served again; ``deletes`` base ids tombstoned and the stream
     served (engine and ``DeltaTier.search_exact``); ``merge_async`` while
@@ -3090,10 +3131,11 @@ def live_path(world, tmp: str, card: str, seed: int,
     from repro_torch.kernels import ops
 
     cfg = sift1m()
-    x = world["tiered"].index.vectors                 # phase 3's rows
+    full = world["tiered"].index.vectors              # phase 3's rows
+    x = full[:rows]
     n, dev = x.shape[0], x.device
     n_base = n - inserts
-    batches, gts, qn = world["batches"], world["gts"], world["qn"]
+    batches, qn = world["batches"], world["qn"]
     rng = np.random.default_rng(seed + 19)
     calib = qn[rng.choice(qn.shape[0], min(CALIB_SAMPLE, qn.shape[0]),
                           replace=False)]
@@ -3112,8 +3154,11 @@ def live_path(world, tmp: str, card: str, seed: int,
             np.cumsum([0] + [b.shape[0] for b in batches[:-1]]), batches)]
 
     stage = batches[:LIVE_STAGE_BATCHES]
-    log(f"[live] cut for time: each stage serves {len(stage)} of the "
-        f"stream's {len(batches)} batches")
+    log(f"[live] cut for time: rows {full.shape[0] * 99 // 100:,} -> {n:,} "
+        f"(the base the write path had over all {full.shape[0]:,} of phase "
+        f"3's rows, against the first {n:,} of them now: a base of "
+        f"{n_base:,}, {inserts:,} inserts and {deletes:,} deletes); each "
+        f"stage serves {len(stage)} of the stream's {len(batches)} batches")
 
     ops.reset_launch_counts()
     bcfg = build.BuildConfig(degree=cfg.degree, beam_width=cfg.l_build,
@@ -3142,13 +3187,12 @@ def live_path(world, tmp: str, card: str, seed: int,
             f"{bt['store']:.1f}s; launches "
             f"{ {k: v for k, v in ops.launch_counts().items() if v} }")
         log(f"[live] phase 3's in-memory tiered adaptive recall@10 (the "
-            f"offline build, 1M rows): {ref:.4f}, printed beside each "
-            f"[live] recall; gate {LIVE_RECALL_FLOOR}")
+            f"offline build over all {full.shape[0]:,} rows): {ref:.4f}, "
+            f"printed beside each [live] recall; gate {LIVE_RECALL_FLOOR}")
         gt0 = uncounted(lambda: live_gt(x, np.arange(n_base), qn, cfg.k))
         live.search(qn[:64])                                # warm-up
-        runs = {"base": live_serve("base, 990k-row index" if n_base ==
-                                   990_000 else "base", live, stage,
-                                   split(gt0), None, card)}
+        runs = {"base": live_serve(f"base, {n_base:,}-row index", live,
+                                   stage, split(gt0), None, card)}
 
         # Inserts: the last rows, in LIVE_INSERT_CALLS calls.
         per_call = inserts // LIVE_INSERT_CALLS
@@ -3190,9 +3234,10 @@ def live_path(world, tmp: str, card: str, seed: int,
                                  "staleness)")
         log(f"[live] self-queries after the inserts: all {own.shape[0]} "
             f"inserted vectors found at rank 0 with d2 = 0")
+        gt_all = uncounted(lambda: live_gt(x, np.arange(n), qn, cfg.k))
         runs["inserted"] = live_serve(
-            "after inserts (live = phase 3's 1M rows; phase 3's ground "
-            "truth)", live, stage, gts, None, card)
+            f"after inserts (live = the first {n:,} rows)", live, stage,
+            split(gt_all), None, card)
 
         # Deletes: base external ids from the seed.
         gone = np.sort(rng.choice(n_base, deletes, replace=False))
@@ -3361,11 +3406,83 @@ def merge_device_ms(last) -> tuple[float, float]:
                       hold=True)
 
 
+def check_last_card(seed: int) -> str:
+    """With two cards or more: ``beam_step`` exact and pq launched once on
+    the last card while the first is current, each bit-identical to
+    ``beam_step_ref`` on integer data at phase 2's shapes."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    last = torch.device("cuda", torch.cuda.device_count() - 1)
+    cfg = sift1m()
+    for i, kind in enumerate(("exact", "pq")):
+        st0, ctxs, adj, table, budgets, hop_limits = walk_problem(
+            kind, last, KERNEL_N, KERNEL_Q, cfg.l_search, cfg.degree, True,
+            seed + i, WALK_HOPS)
+        if torch.cuda.current_device() != 0:
+            raise AssertionError("[dist] the first card is not current")
+        got = ops.beam_step(clone(st0), ctxs, adj, table, budgets,
+                            hop_limits, kind=kind)
+        want = ref.beam_step_ref(st0, ctxs, adj, table, budgets, hop_limits,
+                                 kind=kind)
+        for name, a, b in zip(("ids", "d", "exp", "visited", "hops",
+                               "evals"), got, want):
+            if a.device != last or not torch.equal(a, b):
+                raise AssertionError(f"[dist] beam_step[{kind}] on {last}: "
+                                     f"{name} differs from the plain "
+                                     f"version")
+    return (f"beam_step exact and pq launched on {last} with cuda:0 current: "
+            f"bit-identical to beam_step_ref (Q={KERNEL_Q} N={KERNEL_N}, "
+            f"integer data)")
+
+
+def shard_topk_check(mesh, back, q, budget, kw, buckets) -> None:
+    """One batch through the monolithic step on the shards' streams: each
+    shard's (Q, k) top-k (the merge's inputs) must equal, bit for bit,
+    that shard's walk run alone on its card's default stream."""
+    import torch
+
+    from repro_torch.distributed import sharded_search as ss
+
+    got, real = {}, ss._hedged_merge
+
+    def keep(d2, ids, *args, **kw_):
+        got["d2"], got["ids"] = d2.cpu(), ids.cpu()
+        return real(d2, ids, *args, **kw_)
+
+    ss._hedged_merge = keep
+    try:
+        ss.distributed_search(mesh, back.arrays, q, beam_budget=budget,
+                              budget_buckets=buckets, **kw)
+    finally:
+        ss._hedged_merge = real
+    a = back.arrays
+    ctxs = ss._shard_ctxs(a["centroids"], q, True)
+    for s, d in enumerate(mesh.shard_devices):
+        with ss._on_device(d):
+            d2, ids = ss._local_search(
+                a["adj"].parts[s], a["codes"].parts[s],
+                a["vectors"].parts[s], ctxs.to(d), q.to(d),
+                a["entries"].parts[s][0], max_hops=kw["max_hops"],
+                beam_width=kw["beam_width"], k=kw["k"],
+                query_chunk=kw["query_chunk"], use_pq=True,
+                beam_budget=budget,
+                bucket_ceilings=ss._bucket_ceilings(budget, buckets))
+        if not (torch.equal(d2.cpu(), got["d2"][s])
+                and torch.equal(ids.cpu(), got["ids"][s])):
+            raise AssertionError(f"[dist] shard {s} on {d}: its top-k on "
+                                 f"its stream differs from its walk alone")
+
+
 def dist_path(world, card: str, seed: int) -> dict:
     """[dist]: phase 3's 1M rows in 8 shards of 125,000 on a (2, 4)
-    ("data", "model") mesh on the card, one sub-graph built per shard
-    (``build_sharded_arrays``: R, L_build of the config, static alpha 1.2,
-    PQ m=16 over the whole collection); the stream served staged
+    ("data", "model") mesh over every visible card, one sub-graph built
+    per shard on its card (``build_sharded_arrays``: R, L_build of the
+    config, static alpha 1.2, PQ m=16 trained once), each shard's rows
+    held on its card and its walks on a stream of its own; one batch's
+    per-shard top-k against each shard's walk alone; the stream served
+    staged
     (pipelined and per batch, hierarchical merge, 4 budget buckets, the
     config's law), by the monolithic adaptive step and by a fixed-beam
     monolithic step at l_search; both merges through
@@ -3388,9 +3505,15 @@ def dist_path(world, card: str, seed: int) -> dict:
     x = world["tiered"].index.vectors                 # phase 3's rows
     n, dev = x.shape[0], x.device
     batches, gts, qn = world["batches"], world["gts"], world["qn"]
-    mesh = make_mesh(DIST_MESH, DIST_AXES, dev)
-    n_shards = mesh.n_shards
     t_phase = time.perf_counter()
+    cards = torch.cuda.device_count()
+    if cards > 1:
+        log(f"[dist] {check_last_card(seed + 41)}")
+    mesh = make_mesh(DIST_MESH, DIST_AXES)
+    n_shards = mesh.n_shards
+    if len(mesh.devices) != min(cards, n_shards):
+        raise AssertionError(f"[dist] the mesh spans {len(mesh.devices)} of "
+                             f"{cards} cards")
     ops.reset_launch_counts()
     bcfg = build.BuildConfig(degree=cfg.degree, beam_width=cfg.l_build,
                              batch=BUILD_BATCH, seed=seed)
@@ -3405,7 +3528,7 @@ def dist_path(world, card: str, seed: int) -> dict:
                              f"{n_shards} shards")
     shard_s = [t[f"shard_{s}"] for s in range(n_shards)]
     log(f"[dist] {n_shards} shards of {per} on a {DIST_MESH} {DIST_AXES} "
-        f"mesh on {dev}: sub-graph builds (R={bcfg.degree} "
+        f"mesh over {len(mesh.devices)} of {cards} cards: sub-graph builds (R={bcfg.degree} "
         f"L={bcfg.beam_width} alpha={DIST_ALPHA} batch={bcfg.batch}) "
         f"{[round(v, 1) for v in shard_s]} s, sum {sum(shard_s):.1f} s; PQ "
         f"m={M_PQ} {t['pq']:.1f} s; {t_build:.1f} s in all; on the card "
@@ -3417,6 +3540,24 @@ def dist_path(world, card: str, seed: int) -> dict:
               query_chunk=batches[0].shape[0])
     back = serving.DistributedBackend(mesh, arrays, beam_budget=budget,
                                       budget_buckets=cfg.budget_buckets, **kw)
+    held: dict = {}
+    for name in ("adj", "codes", "vectors", "entries"):
+        for s, part in enumerate(back.arrays[name].parts):
+            if part.device != mesh.shard_devices[s]:
+                raise AssertionError(f"[dist] shard {s}'s {name} on "
+                                     f"{part.device}, not its card")
+            held[part.device] = (held.get(part.device, 0)
+                                 + part.numel() * part.element_size())
+    log(f"[dist] cards {[str(d) for d in mesh.devices]}; "
+        f"{mesh.describe()}; one stream a shard "
+        f"({len(set(mesh.streams))} distinct); index GB a card "
+        f"{ {str(d): round(b / 1e9, 3) for d, b in held.items()} }; "
+        f"allocated GB a card "
+        f"{ {str(d): round(torch.cuda.memory_allocated(d) / 1e9, 3) for d in mesh.devices if d.type == 'cuda'} }")
+    shard_topk_check(mesh, back, torch.as_tensor(batches[0], device=dev),
+                     budget, kw, cfg.budget_buckets)
+    log(f"[dist] batch 0: every shard's top-k on its own stream = its walk "
+        f"alone on its card's default stream, bit for bit")
     staged = serving.SearchEngine(back, budget, k=cfg.k)
     mono = serving.SearchEngine(back, None, k=cfg.k)
     fixed = serving.SearchEngine(serving.DistributedBackend(mesh, arrays, **kw),
@@ -3506,8 +3647,9 @@ def dist_path(world, card: str, seed: int) -> dict:
     t0 = time.perf_counter()
     fit = calibrate.calibrate_budget_law_per_shard(
         calibrate.shard_exact_recall_evals(
-            arrays["vectors"], arrays["adj"], arrays["entries"], qn,
-            n_shards, k=cfg.k, sample=CALIB_SAMPLE, device=dev),
+            back.arrays["vectors"], back.arrays["adj"],
+            back.arrays["entries"], qn, n_shards, k=cfg.k,
+            sample=CALIB_SAMPLE, mesh=mesh),
         budget, cfg.recall_target, n_shards, joint=True)
     t_fit = time.perf_counter() - t0
     for s, r in enumerate(fit.results):
@@ -3590,6 +3732,13 @@ def dist_path(world, card: str, seed: int) -> dict:
             f"{m['p50_ms']:.1f} ms p99 {m['p99_ms']:.1f} ms, recall@10 "
             f"{m['recall']:.4f}, mean budget {m['mean_budget']}, hops a "
             f"query {m['mean_hops']} ({card})")
+    st_, mo_ = runs["staged per batch"], runs["monolithic adaptive"]
+    log(f"[dist] a stream a shard over {len(mesh.devices)} card(s): staged "
+        f"per batch qps {st_['qps']:.1f}, batch p50 {st_['p50_ms']:.1f} ms "
+        f"p99 {st_['p99_ms']:.1f} ms; monolithic qps {mo_['qps']:.1f}, batch "
+        f"p50 {mo_['p50_ms']:.1f} ms p99 {mo_['p99_ms']:.1f} ms; the shards "
+        f"one after another on one stream: p50 {DIST_SERIAL_MS[0]} / "
+        f"{DIST_SERIAL_MS[1]} ms (recorded, not gated; {card})")
     log(f"[dist] phase in {time.perf_counter() - t_phase:.1f} s")
     return counts
 
@@ -5747,6 +5896,15 @@ def main(argv=None) -> int:
     from repro_torch.kernels import _build, ops
 
     t_start = time.perf_counter()
+    spent: dict = {}
+    last = [t_start]
+
+    def mark(phase: str) -> None:
+        """Charge the time since the last mark to ``phase``."""
+        now = time.perf_counter()
+        spent[phase] = spent.get(phase, 0.0) + now - last[0]
+        last[0] = now
+
     dev = torch.device("cuda", 0)
     card = gpu_name_power()
     log(f"[device] {card}")
@@ -5762,6 +5920,7 @@ def main(argv=None) -> int:
         for line in lib.build_log.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build] ptxas {lib.name}: {line.strip()}")
+    mark("build")
 
     cfg = sift1m()
     kernels = [check_kernel(kind, dev, KERNEL_N, KERNEL_Q, cfg.l_search,
@@ -5777,13 +5936,17 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     kernels.append(check_decode_attention(dev, args.seed))
     torch.cuda.empty_cache()
+    mark("phase2")
 
     paths = {}
     paths["main"], world = main_path(dev, args.n, N_QUERIES, SERVE_BATCH,
                                      BUILD_BATCH, args.seed,
                                      trace=args.trace_first_batch)
+    mark("main")
     paths["calibration"] = calibration_path(world)
+    mark("calibration")
     paths["adc"] = adc_path(world)
+    mark("adc")
     # The world is built: move it out of the collector's sight, so that a
     # full collection under [door]'s load scans only what the runs make.
     gc.collect()
@@ -5791,21 +5954,28 @@ def main(argv=None) -> int:
     log(f"[door] gc.freeze(): {gc.get_freeze_count():,} objects moved to "
         f"the permanent generation before the door's runs")
     paths["door"] = door_path(world, card, args.seed)
+    mark("door")
     tmp = tempfile.mkdtemp(prefix="mcgi-disk-")
     try:
         paths["disk"], stores = disk_path(world, tmp)
+        mark("disk")
         paths["ooc"] = ooc_path(world, stores, card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    mark("ooc")
     tmp = tempfile.mkdtemp(prefix="mcgi-live-")
     try:
-        cut = min(LIVE_INSERTS, args.n // 100)
-        paths["live"] = live_path(world, tmp, card, args.seed, inserts=cut,
-                                  deletes=cut)
+        rows = min(LIVE_ROWS, args.n)
+        cut = min(LIVE_INSERTS, rows // 100)
+        paths["live"] = live_path(world, tmp, card, args.seed, rows=rows,
+                                  inserts=cut, deletes=cut)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    mark("live")
     paths["dist"] = dist_path(world, card, args.seed)
+    mark("dist")
     paths["base"] = base_path(world, card, args.seed)
+    mark("base")
     # Back in the collector's sight: cycles in the world (and the card
     # memory they hold) must be freed before the LM phases.
     gc.unfreeze()
@@ -5813,15 +5983,20 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     paths["metric"] = metric_path(dev, args.seed, card)
     torch.cuda.empty_cache()
+    mark("metric")
     paths["examples"] = examples_path()
     torch.cuda.empty_cache()
+    mark("examples")
     lm_counts, attn_err = lm_paths(dev, args.seed)
     paths.update(lm_counts)
+    mark("lm")
     with ThreadPoolExecutor(max_workers=1) as pool:
         # [gnn-gat]'s host graphs, made beside the training phases.
         graphs = gnn_host_graphs(pool, args.seed)
         paths.update(train_paths(dev, card, args.seed))
+        mark("train")
         paths.update(zoo_paths(dev, card, args.seed, graphs))
+    mark("zoo")
     for rec in kernels:
         if rec["name"] == "decode_attention":
             rec["max_abs_err"] = max(rec["max_abs_err"], attn_err)
@@ -5834,6 +6009,11 @@ def main(argv=None) -> int:
         if rec["launches"] == 0:
             raise AssertionError(f"{rec['name']} was never launched on its "
                                  f"path")
+    mark("checks")
+    log("[budget] " + ", ".join(f"{k} {v:.1f}" for k, v in spent.items())
+        + f" s; sum {sum(spent.values()):.1f} s of the {SMOKE_LIMIT_S:,} s "
+        f"limit (ceiling {SMOKE_CEILING_S} s, a quarter of the limit kept "
+        f"for host-paced phases; {card})")
     log(f"[done] every phase passed in {time.perf_counter() - t_start:.1f}s "
         f"(kernel build included)")
     log("kernels: " + json.dumps({r["name"]: {

@@ -3,10 +3,12 @@
 the index over a (2, 4) mesh, fan out queries, merge the global top-k, then
 drop a shard and watch the hedged merge degrade gracefully.
 
-The mesh is single-controller on one device (the card by default): each
-shard's walk is one ``beam_step`` launch over its rows, the shards one
-after another, each collective a stack over the shard axis, so no
-multi-device flags are needed.  With a budget law on both the backend and
+The mesh is single-controller and spans every visible card (the CPU with
+``--device cpu``), the shards in contiguous blocks: each shard's rows stay
+on its own card, and its walk is one ``beam_step`` launch on its own
+stream there, so the shards' walks overlap; the per-shard candidates are
+gathered to the first card for the hedged merge.  No multi-device flags
+are needed.  With a budget law on both the backend and
 the engine the step runs *staged* (probe checkpointed at the horizon,
 host bucketing, budget-bucketed continues, the hedged merge), bit-identical
 to the monolithic one-program step.  The example ends with one (lam, l_min)
@@ -41,7 +43,8 @@ def main(argv=None) -> dict:
     dev = resolve_device(args.device)
     out = {}
 
-    mesh = make_mesh((2, 4), ("data", "model"), dev)
+    mesh = make_mesh((2, 4), ("data", "model"),
+                     None if args.device == "cuda" else dev)
     n_shards = mesh.n_shards
     x, queries = make_dataset("tiny-mixture", seed=args.seed, device=dev,
                               n=args.n)
@@ -53,7 +56,7 @@ def main(argv=None) -> dict:
                                           seed=args.seed)
     x = x[:per * n_shards]
     print(f"[dist] {per * n_shards} points over {n_shards} shards "
-          f"({per}/shard) on {dev}")
+          f"({per}/shard): {mesh.describe()}")
     _, gt_ids = brute_force_topk(torch.as_tensor(queries, device=dev), x,
                                  k=10)
 
@@ -116,7 +119,7 @@ def main(argv=None) -> dict:
     fit = calibrate.calibrate_budget_law_per_shard(
         calibrate.shard_exact_recall_evals(
             arrays["vectors"], arrays["adj"], arrays["entries"], queries,
-            n_shards, k=10, sample=32, device=dev),
+            n_shards, k=10, sample=32, mesh=mesh),
         budget, recall_target=0.9, n_shards=n_shards, max_iters=3)
     lam_arr, l_min_arr = fit.law_arrays()
     # hop_factor is global in the step: serve the largest fitted one.

@@ -265,30 +265,45 @@ def calibrate_budget_law_per_shard(
 
 def shard_exact_recall_evals(vectors, adj, entries, queries, n_shards: int, *,
                              k: int = 10, sample: int = 256, seed: int = 0,
-                             device="cuda") -> Callable[[int], Callable]:
-    """``make_shard_eval`` over a shard-major distributed layout: shard
-    ``s`` owns rows ``[s*per, (s+1)*per)`` of ``vectors`` / ``adj`` (with
-    shard-local ids), ``entries`` holds the per-shard medoids.  Shard
-    recall is measured by the exact-distance adaptive walk against the
-    shard's own exact top-k (one :func:`~repro_torch.core.distance
-    .brute_force_topk` per shard, through the ``l2_distance`` and ``topk``
-    kernels on the card); every shard draws the same held-out sample."""
-    dev = resolve_device(device)
-    vectors = torch.as_tensor(vectors, dtype=torch.float32, device=dev)
-    adj = torch.as_tensor(adj, dtype=torch.int32, device=dev)
-    entries = torch.as_tensor(entries, dtype=torch.int32, device=dev)
-    queries = torch.as_tensor(queries, dtype=torch.float32, device=dev)
-    per = adj.shape[0] // n_shards
+                             device="cuda", mesh=None
+                             ) -> Callable[[int], Callable]:
+    """``make_shard_eval`` over a distributed layout: shard ``s`` owns rows
+    ``[s*per, (s+1)*per)`` of ``vectors`` / ``adj`` (with shard-local ids),
+    ``entries`` holds the per-shard medoids.  Shard recall is measured by
+    the exact-distance adaptive walk against the shard's own exact top-k
+    (one :func:`~repro_torch.core.distance.brute_force_topk` per shard,
+    through the ``l2_distance`` and ``topk`` kernels on the card); every
+    shard draws the same held-out sample.
+
+    With ``mesh`` each shard is evaluated on its own device
+    (``mesh.shard_devices[s]``), reading its rows there (the blocks of
+    :class:`~repro_torch.distributed.mesh.ShardedRows`, or its rows of
+    shard-major arrays, copied); without, every shard on ``device``."""
+    devices = (list(mesh.shard_devices) if mesh is not None
+               else [resolve_device(device)] * n_shards)
+    on_dev: dict = {}
+
+    def rows(a, s: int, dtype) -> torch.Tensor:
+        if hasattr(a, "parts"):                   # ShardedRows
+            return a.parts[s].to(device=devices[s], dtype=dtype)
+        a = torch.as_tensor(a)
+        per = a.shape[0] // n_shards
+        return a[s * per:(s + 1) * per].to(device=devices[s], dtype=dtype)
 
     def make_shard_eval(s: int) -> Callable:
-        x_s = vectors[s * per:(s + 1) * per]
-        adj_s = adj[s * per:(s + 1) * per]
-        _, gt_s = distance_mod.brute_force_topk(queries, x_s, k=k)
+        d = devices[s]
+        x_s = rows(vectors, s, torch.float32)
+        adj_s = rows(adj, s, torch.int32)
+        entry = rows(entries, s, torch.int32)[0]
+        if d not in on_dev:
+            on_dev[d] = torch.as_tensor(queries, dtype=torch.float32,
+                                        device=d)
+        q = on_dev[d]
+        _, gt_s = distance_mod.brute_force_topk(q, x_s, k=k)
 
         def factory(cfg: Budget) -> Callable[[Budget], float]:
-            return exact_recall_eval(x_s, adj_s, entries[s], queries, gt_s,
-                                     k=k, sample=sample, seed=seed,
-                                     base_cfg=cfg)
+            return exact_recall_eval(x_s, adj_s, entry, q, gt_s, k=k,
+                                     sample=sample, seed=seed, base_cfg=cfg)
 
         return factory
 

@@ -10,12 +10,20 @@ local exact rerank on its sub-index, and the per-shard top-k are merged into
 the global top-k.
 
 The port is single-controller, as the reference is: one process drives
-every shard on one device (:class:`repro_torch.distributed.mesh.ShardMesh`).
-Each shard's walk is one :func:`repro_torch.core.search.run_batch` (one
-``ops.beam_walk`` launch on the card) over that shard's rows of the
-shard-major tensors, the shards one after another on the current stream;
-the reference's ``all_gather`` becomes a ``torch.stack`` over the shard axis
-and its ``psum`` a sum over it.
+every shard of a :class:`repro_torch.distributed.mesh.ShardMesh`, whose
+shards are spread over its devices (every visible card by default).  An
+index on a mesh of several devices is held as
+:class:`~repro_torch.distributed.mesh.ShardedRows`, each shard's rows on
+its own card (:func:`place_arrays`); a one-device mesh takes shard-major
+tensors.  Each shard's walk is one :func:`repro_torch.core.search
+.run_batch` (one ``ops.beam_walk`` launch on the card) over its own rows,
+queued on the shard's own stream behind the caller's stream, so the shards'
+walks overlap and the host waits for none of them.  Each shard's frontier
+state stays on its card (:class:`~repro_torch.distributed.mesh
+.ShardStack`); its ``(Q, k)`` candidates are copied to the mesh's first
+device, which waits for the shards' streams (the reference's
+``all_gather``), and the hedged merge runs there; the reference's ``psum``
+is a sum over the gathered shards.
 
 Straggler mitigation: the merge takes a per-shard ``shard_ok`` mask; a shard
 that is late or down contributes +inf distances, so the merge degrades
@@ -41,21 +49,30 @@ inputs, and each shard's budget law uses its own pair (a 0-dim tensor of the
 shard).  ``l_max`` stays global: it is the beam's width.
 
 Each step callable takes a keyword ``active_count`` (one int32 on the
-device): given, every walk adds its lanes that could still move to it and
-nothing waits for the device; the caller reads it once
-(:func:`repro_torch.core.search.check_converged`).  Without it each walk is
-checked as it is launched.
+mesh's device).  Every shard's walks add their lanes that could still move
+to a counter of that shard's own on its card; the counters are summed on
+the mesh's device into ``active_count`` and nothing waits for a card, so
+the caller reads it once (:func:`repro_torch.core.search
+.check_converged`).  Without it the step reads the sum once itself, after
+the last shard is queued.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import time
 
 import torch
 
 from repro_torch.core import build as build_mod
 from repro_torch.core import search as search_mod
 from repro_torch.core.mapping import constant_alpha
-from repro_torch.pq import build_lut, pq_encode, train_pq
+from repro_torch.distributed.mesh import ShardedRows, ShardStack, place_rows
+from repro_torch.pq import PqCodebook, build_lut, pq_encode, train_pq
+
+# ``train_pq``'s default sample: the codebook is trained on this many rows
+# drawn on the mesh's first device, as ``train_pq`` draws them there.
+PQ_TRAIN_SAMPLE = 65536
 
 
 @dataclasses.dataclass(frozen=True)
@@ -193,34 +210,76 @@ def _chunks(nq: int, chunk: int) -> list[slice]:
     return [slice(a, a + chunk) for a in range(0, nq, chunk)] or [slice(0, 0)]
 
 
-def _shard_rows(t: torch.Tensor, s: int, per: int) -> torch.Tensor:
-    """Shard ``s``'s rows of a shard-major tensor (a view)."""
-    return t[s * per:(s + 1) * per]
+def _shard_rows(mesh, t, s: int, per: int) -> torch.Tensor:
+    """Shard ``s``'s rows for its stream: its block of a
+    :class:`ShardedRows`, or its rows of a shard-major tensor on its
+    device (inside ``mesh.on_shard(s)``)."""
+    if isinstance(t, ShardedRows):
+        return t.parts[s]
+    if t.device != mesh.shard_devices[s]:
+        raise ValueError(f"shard-major rows on {t.device} for shard {s} on "
+                         f"{mesh.shard_devices[s]}: place the index on the "
+                         f"mesh first (place_arrays)")
+    return mesh.to_shard(t[s * per:(s + 1) * per], s)
 
 
-def _local_search(adj, codes, vectors, centroids, queries, entry, *,
+def _shard_item(mesh, t, s: int) -> torch.Tensor:
+    """Shard ``s``'s 0-dim entry of an ``(n_shards,)`` vector (entries, a
+    per-shard law), on its device."""
+    if isinstance(t, ShardedRows):
+        return t.parts[s][0]
+    return mesh.to_shard(torch.as_tensor(t)[s], s)
+
+
+def _shard_leaf(mesh, a, s: int) -> torch.Tensor:
+    """Shard ``s``'s ``(Q, ...)`` block of a ``(Q, n_shards, ...)`` state
+    leaf, on its device."""
+    if isinstance(a, ShardStack):
+        return a.parts[s]
+    return mesh.to_shard(a[:, s].contiguous(), s)
+
+
+def _law(mesh, laws, s: int, per_shard_laws: bool):
+    """Shard ``s``'s (lam, l_min) 0-dim tensors, or (None, None)."""
+    if not per_shard_laws:
+        return None, None
+    if len(laws) != 2:
+        raise ValueError("per_shard_laws steps take (shard_lam, shard_l_min)")
+    return _shard_item(mesh, laws[0], s), _shard_item(mesh, laws[1], s)
+
+
+def _settle_counts(counts, active_count) -> None:
+    """Sum the shards' counters (already on the mesh's device) into
+    ``active_count``, or read the sum once when there is none."""
+    total = torch.stack(counts).sum(0, dtype=torch.int32)
+    if active_count is None:
+        search_mod.check_converged(total)
+    else:
+        active_count += total
+
+
+def _local_search(adj, codes, vectors, ctxs, queries, entry, *,
                   beam_width: int, max_hops: int, k: int, query_chunk: int,
                   use_pq: bool,
                   beam_budget: search_mod.AdaptiveBeamBudget | None = None,
                   bucket_ceilings: tuple[int, ...] | None = None,
                   lam=None, l_min=None, active_count=None):
-    """Per-shard search over the local sub-graph, in ``query_chunk`` groups.
-    Returns (d2, local_ids), each (Q, k).
+    """Per-shard search over the local sub-graph, in ``query_chunk`` groups,
+    on the current stream of the shard's device.  Returns (d2, local_ids),
+    each (Q, k).
 
-    ``entry`` is the shard's own entry point (its local medoid).  With
-    ``beam_budget`` the shard runs the adaptive engine, its budgets computed
-    on this shard from its own probe beam; ``lam`` / ``l_min`` override the
-    law with this shard's values.  ``bucket_ceilings`` quantizes each budget
-    up to its ceiling and derives the hop limit from it (a discrete family
-    of per-shard hop deadlines, capped by ``max_hops``).
+    ``ctxs`` are the batch's walk contexts (ADC LUTs or the queries) and
+    ``entry`` the shard's own entry point (its local medoid).  With
+    ``beam_budget`` the shard runs the adaptive engine, its budgets
+    computed on this shard from its own probe beam; ``lam`` / ``l_min``
+    override the law with this shard's values.  ``bucket_ceilings``
+    quantizes each budget up to its ceiling and derives the hop limit from
+    it (a discrete family of per-shard hop deadlines, capped by
+    ``max_hops``).
     """
     nq = queries.shape[0]
-    if nq % query_chunk:
-        raise ValueError(f"batch of {nq} queries is not divisible by "
-                         f"query_chunk={query_chunk}")
     n_local = adj.shape[0]
     eval_dists = _shard_eval(codes, vectors, use_pq)
-    ctxs = _shard_ctxs(centroids, queries, use_pq)
     d2s, idss = [], []
     for sl in _chunks(nq, query_chunk):
         if beam_budget is not None:
@@ -237,15 +296,6 @@ def _local_search(adj, codes, vectors, centroids, queries, entry, *,
         d2s.append(d2)
         idss.append(ids)
     return torch.cat(d2s), torch.cat(idss)
-
-
-def _law(laws, s: int, per_shard_laws: bool):
-    """Shard ``s``'s (lam, l_min) 0-dim tensors, or (None, None)."""
-    if not per_shard_laws:
-        return None, None
-    if len(laws) != 2:
-        raise ValueError("per_shard_laws steps take (shard_lam, shard_l_min)")
-    return laws[0][s], laws[1][s]
 
 
 def _bucket_ceilings(budget_cfg, budget_buckets):
@@ -268,9 +318,9 @@ def make_distributed_search(mesh, *, beam_width: int, max_hops: int, k: int,
          [, shard_lam, shard_l_min], *, active_count=None)
       -> (d2 (Q, k), shard_id (Q, k), local_id (Q, k))
 
-    ``entries`` is the (n_shards,) tensor of per-shard entry points.  Global
-    ids come back as (shard, local_id) pairs.  ``beam_budget`` None walks
-    every query at ``beam_width``; an
+    ``entries`` holds the per-shard entry points.  Global ids come back as
+    (shard, local_id) pairs, on the mesh's device.  ``beam_budget`` None
+    walks every query at ``beam_width``; an
     :class:`~repro_torch.core.search.AdaptiveBeamBudget` switches every
     shard to the adaptive engine.  ``budget_buckets`` quantizes each shard's
     budgets up to at most that many halving ceilings and derives each
@@ -284,20 +334,35 @@ def make_distributed_search(mesh, *, beam_width: int, max_hops: int, k: int,
              *laws, active_count=None):
         per = adj.shape[0] // mesh.n_shards
         queries = queries.to(torch.float32)
-        d2s, idss = [], []
+        nq = queries.shape[0]
+        if nq % query_chunk:
+            raise ValueError(f"batch of {nq} queries is not divisible by "
+                             f"query_chunk={query_chunk}")
+        ctxs = _shard_ctxs(centroids, queries, use_pq)
+        caller = mesh.caller()
+        d2s, idss, counts = [], [], []
         for s in range(mesh.n_shards):
-            lam, l_min = _law(laws, s, per_shard_laws)
-            d2, ids = _local_search(
-                _shard_rows(adj, s, per), _shard_rows(codes, s, per),
-                _shard_rows(vectors, s, per), centroids, queries, entries[s],
-                beam_width=beam_width, max_hops=max_hops, k=k,
-                query_chunk=query_chunk, use_pq=use_pq,
-                beam_budget=beam_budget, bucket_ceilings=bucket_ceilings,
-                lam=lam, l_min=l_min, active_count=active_count)
-            d2s.append(d2)
-            idss.append(ids)
-        return _hedged_merge(torch.stack(d2s), torch.stack(idss), shard_ok,
-                             mesh, axes, merge)
+            with mesh.on_shard(s, after=caller):
+                lam, l_min = _law(mesh, laws, s, per_shard_laws)
+                left = torch.zeros((1,), dtype=torch.int32,
+                                   device=mesh.shard_devices[s])
+                d2, ids = _local_search(
+                    _shard_rows(mesh, adj, s, per),
+                    _shard_rows(mesh, codes, s, per),
+                    _shard_rows(mesh, vectors, s, per),
+                    mesh.to_shard(ctxs, s), mesh.to_shard(queries, s),
+                    _shard_item(mesh, entries, s),
+                    beam_width=beam_width, max_hops=max_hops, k=k,
+                    query_chunk=query_chunk, use_pq=use_pq,
+                    beam_budget=beam_budget, bucket_ceilings=bucket_ceilings,
+                    lam=lam, l_min=l_min, active_count=left)
+                d2s.append(mesh.to_caller(d2, caller))
+                idss.append(mesh.to_caller(ids, caller))
+                counts.append(mesh.to_caller(left, caller))
+        mesh.join(caller)
+        _settle_counts(counts, active_count)
+        return _hedged_merge(torch.stack(d2s), torch.stack(idss),
+                             shard_ok.to(mesh.device), mesh, axes, merge)
 
     return step
 
@@ -319,10 +384,11 @@ def make_distributed_probe(mesh, *,
     per-shard budgets and hop limits (quantized up to the bucket ceilings
     when ``budget_buckets`` is set, as the monolithic step does).
     ``probe_state`` is (beam_ids, beam_d, beam_exp, visited, hops, evals,
-    ctx) with the per-shard leaves laid out ``(Q, n_shards, ...)`` (the
-    visited words int32 carrying uint32 bit patterns) and ``ctx`` (the ADC
-    LUTs or the queries) shared by every shard; ``budgets`` / ``hop_limits``
-    / ``q_lid`` are (Q, n_shards).
+    ctx): the per-shard leaves are :class:`ShardStack` s laid out
+    ``(Q, n_shards, ...)``, each shard's block on its card (the visited
+    words int32 carrying uint32 bit patterns), and ``ctx`` (the ADC LUTs or
+    the queries) is shared by every shard, on the mesh's device;
+    ``budgets`` / ``hop_limits`` / ``q_lid`` are (Q, n_shards) there.
 
     Queries are probed in ``query_chunk`` groups, as the monolithic step
     does (so a batch-mean LID centre sees the same chunks); a batch not
@@ -345,30 +411,43 @@ def make_distributed_probe(mesh, *,
                 f"query_chunk={query_chunk} and too large to probe as one "
                 f"chunk; align bulk batches to the chunk grid")
         ctxs = _shard_ctxs(centroids, queries, use_pq)
-        shards = []
+        caller = mesh.caller()
+        walks, grants, counts = [], [], []
         for s in range(mesh.n_shards):
-            lam, l_min = _law(laws, s, per_shard_laws)
-            adj_s = _shard_rows(adj, s, per)
-            eval_dists = _shard_eval(_shard_rows(codes, s, per),
-                                     _shard_rows(vectors, s, per), use_pq)
-            outs = []
-            for sl in _chunks(nq, chunk):
-                st, budgets, hop_limits, q_lid = (
-                    search_mod.adaptive_probe_batch(
-                        ctxs[sl], adj_s, entries[s], eval_dists, per,
-                        budget_cfg, max_hops=max_hops, lam=lam, l_min=l_min,
-                        active_count=active_count))
-                if bucket_ceilings is not None:
-                    _, budgets = search_mod.quantize_budgets(budgets,
-                                                             bucket_ceilings)
-                    hop_limits = search_mod._bucket_hop_limits(
-                        budget_cfg, budgets, max_hops)
-                outs.append(tuple(st) + (budgets, hop_limits, q_lid))
-            shards.append([torch.cat(leaves) for leaves in zip(*outs)])
-        (b_ids, b_d, b_exp, visited, hops, evals, budgets, hop_limits,
-         q_lid) = [torch.stack(leaves, 1) for leaves in zip(*shards)]
-        state = (b_ids, b_d, b_exp, visited, hops, evals, ctxs)
-        return state, budgets, hop_limits, q_lid
+            with mesh.on_shard(s, after=caller):
+                lam, l_min = _law(mesh, laws, s, per_shard_laws)
+                adj_s = _shard_rows(mesh, adj, s, per)
+                eval_dists = _shard_eval(_shard_rows(mesh, codes, s, per),
+                                         _shard_rows(mesh, vectors, s, per),
+                                         use_pq)
+                ctxs_s = mesh.to_shard(ctxs, s)
+                entry = _shard_item(mesh, entries, s)
+                left = torch.zeros((1,), dtype=torch.int32,
+                                   device=mesh.shard_devices[s])
+                outs = []
+                for sl in _chunks(nq, chunk):
+                    st, budgets, hop_limits, q_lid = (
+                        search_mod.adaptive_probe_batch(
+                            ctxs_s[sl], adj_s, entry, eval_dists, per,
+                            budget_cfg, max_hops=max_hops, lam=lam,
+                            l_min=l_min, active_count=left))
+                    if bucket_ceilings is not None:
+                        _, budgets = search_mod.quantize_budgets(
+                            budgets, bucket_ceilings)
+                        hop_limits = search_mod._bucket_hop_limits(
+                            budget_cfg, budgets, max_hops)
+                    outs.append(tuple(st) + (budgets, hop_limits, q_lid))
+                leaves = [torch.cat(parts) for parts in zip(*outs)]
+                walks.append(leaves[:6])
+                grants.append([mesh.to_caller(t, caller)
+                               for t in leaves[6:]])
+                counts.append(mesh.to_caller(left, caller))
+        mesh.join(caller)
+        _settle_counts(counts, active_count)
+        state = tuple(ShardStack(mesh, parts) for parts in zip(*walks))
+        budgets, hop_limits, q_lid = [torch.stack(parts, 1)
+                                      for parts in zip(*grants)]
+        return state + (ctxs,), budgets, hop_limits, q_lid
 
     return step
 
@@ -384,13 +463,12 @@ def make_distributed_continue(mesh, *,
       -> (d2 (q, k), shard_id (q, k), local_id (q, k),
           hops (q,), dist_evals (q,))
 
-    Resumes the checkpointed shard walks (warm beam and visited set) for
-    any query subset of a probe's batch (the host selects rows on axis 0 of
-    every probe output), reranks locally and runs the same hedged merge as
-    the monolithic step.  ``shard_ok`` is consumed here, at merge time.
-    ``hops`` / ``dist_evals`` are per-query totals over the live shards.
-    Without ``active_count`` the shards' walks share one counter, read once
-    after the last is launched.
+    Resumes the checkpointed shard walks (warm beam and visited set), each
+    on its shard's stream and card, for any query subset of a probe's batch
+    (the host selects rows on axis 0 of every probe output), reranks
+    locally and runs the same hedged merge as the monolithic step.
+    ``shard_ok`` is consumed here, at merge time.  ``hops`` /
+    ``dist_evals`` are per-query totals over the live shards.
     """
     axes = _shard_axes(mesh)
 
@@ -399,28 +477,32 @@ def make_distributed_continue(mesh, *,
         per = adj.shape[0] // mesh.n_shards
         queries = queries.to(torch.float32)
         *walk, ctx = state
-        left = (torch.zeros((1,), dtype=torch.int32, device=adj.device)
-                if active_count is None else active_count)
-        d2s, idss, hops, evals = [], [], [], []
+        caller = mesh.caller()
+        d2s, idss, hops, evals, counts = [], [], [], [], []
         for s in range(mesh.n_shards):
-            walk_s = tuple(a[:, s].contiguous() for a in walk)
-            beam_ids, _, h, e = search_mod.adaptive_continue_batch(
-                walk_s, ctx, _shard_rows(adj, s, per),
-                _shard_eval(_shard_rows(codes, s, per),
-                            _shard_rows(vectors, s, per), use_pq),
-                budget_cfg, budgets[:, s], hop_limits[:, s],
-                active_count=left)
-            d2, ids = _local_rerank(beam_ids, _shard_rows(vectors, s, per),
-                                    queries, k)
-            d2s.append(d2)
-            idss.append(ids)
-            hops.append(h)
-            evals.append(e)
-        if active_count is None:
-            search_mod.check_converged(left)
+            with mesh.on_shard(s, after=caller):
+                walk_s = tuple(_shard_leaf(mesh, a, s) for a in walk)
+                vectors_s = _shard_rows(mesh, vectors, s, per)
+                left = torch.zeros((1,), dtype=torch.int32,
+                                   device=mesh.shard_devices[s])
+                beam_ids, _, h, e = search_mod.adaptive_continue_batch(
+                    walk_s, mesh.to_shard(ctx, s),
+                    _shard_rows(mesh, adj, s, per),
+                    _shard_eval(_shard_rows(mesh, codes, s, per), vectors_s,
+                                use_pq),
+                    budget_cfg, _shard_leaf(mesh, budgets, s),
+                    _shard_leaf(mesh, hop_limits, s), active_count=left)
+                d2, ids = _local_rerank(beam_ids, vectors_s,
+                                        mesh.to_shard(queries, s), k)
+                for out, t in ((d2s, d2), (idss, ids), (hops, h),
+                               (evals, e), (counts, left)):
+                    out.append(mesh.to_caller(t, caller))
+        mesh.join(caller)
+        _settle_counts(counts, active_count)
         d2, sid, lid = _hedged_merge(torch.stack(d2s), torch.stack(idss),
-                                     shard_ok, mesh, axes, merge)
-        live = shard_ok[:, None]
+                                     shard_ok.to(mesh.device), mesh, axes,
+                                     merge)
+        live = shard_ok.to(mesh.device)[:, None]
         live_hops = torch.where(live, torch.stack(hops), 0).sum(
             0, dtype=torch.int32)
         live_evals = torch.where(live, torch.stack(evals), 0).sum(
@@ -430,55 +512,131 @@ def make_distributed_continue(mesh, *,
     return step
 
 
-def shard_medoids(vectors: torch.Tensor, n_shards: int) -> torch.Tensor:
-    """Per-shard entry points: the local medoid of each shard's rows of the
-    shard-major ``vectors``.  (n_shards,) int32."""
+def _on_device(dev: torch.device):
+    """``dev`` made the current card (nothing off the card)."""
+    if dev.type == "cuda":
+        return torch.cuda.device(dev)
+    return contextlib.nullcontext()
+
+
+def shard_medoids(vectors, n_shards: int):
+    """Per-shard entry points: the local medoid of each shard's rows.
+
+    For shard-major ``vectors`` an (n_shards,) int32 tensor; for
+    :class:`ShardedRows` one ``(1,)`` block a shard, each computed on the
+    shard's own device (the host waits for them)."""
+    if isinstance(vectors, ShardedRows):
+        parts = []
+        for p in vectors.parts:
+            with _on_device(p.device):
+                parts.append(search_mod.medoid(p).reshape(1))
+        for d in dict.fromkeys(p.device for p in parts):
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
+        return ShardedRows(parts)
     per = vectors.shape[0] // n_shards
     blocks = vectors[:per * n_shards].reshape(n_shards, per, -1)
     return torch.stack([search_mod.medoid(b) for b in blocks])
+
+
+def place_arrays(mesh, arrays: dict) -> dict:
+    """A distributed index dict placed on ``mesh``: ``adj`` / ``codes`` /
+    ``vectors`` / ``entries`` as :class:`ShardedRows` (each shard's rows on
+    its own device; the entries computed there when absent), ``centroids``
+    on the mesh's first device, where each batch's LUTs are built before
+    they are copied to every card.  The host waits for the copies."""
+    out = {name: place_rows(mesh, arrays[name])
+           for name in ("adj", "codes", "vectors")}
+    out["centroids"] = torch.as_tensor(arrays["centroids"],
+                                       device=mesh.device)
+    out["entries"] = (place_rows(mesh, arrays["entries"],
+                                 dtype=torch.int32)
+                      if "entries" in arrays
+                      else shard_medoids(out["vectors"], mesh.n_shards))
+    mesh.synchronize()
+    return out
+
+
+def _assemble(mesh, parts):
+    """Per-shard blocks as the index holds them on ``mesh``: one
+    shard-major tensor on a one-device mesh, else :class:`ShardedRows`."""
+    return ShardedRows(parts) if mesh.spread else torch.cat(parts)
+
+
+def _pq_sample(x: torch.Tensor, dev: torch.device, seed: int) -> torch.Tensor:
+    """The codebook's training rows on ``dev``: the sample ``train_pq``
+    draws there (``PQ_TRAIN_SAMPLE`` rows by a seeded permutation), read
+    from ``x`` wherever it lies."""
+    n = x.shape[0]
+    if n <= PQ_TRAIN_SAMPLE:
+        return x.to(dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    pick = torch.randperm(n, generator=gen, device=dev)[:PQ_TRAIN_SAMPLE]
+    return x[pick.to(x.device)].to(dev)
 
 
 def build_sharded_arrays(x, mesh, *, build_cfg: build_mod.BuildConfig,
                          m_pq: int = 8, alpha: float = 1.2,
                          pq_iters: int = 4, seed: int = 0,
                          timings: dict | None = None) -> tuple[dict, int]:
-    """Build a shard-major distributed index for ``mesh`` on its device.
+    """Build a distributed index for ``mesh``, each shard on its device.
 
     One locally built sub-graph per shard (shard-local ids, static
-    ``alpha``), a PQ codebook and codes over the whole collection, and the
-    per-shard entry medoids.  ``x`` is truncated to a multiple of the shard
-    count.  ``timings`` (a dict) gains each shard's build seconds
-    (``shard_<s>``) and the PQ tier's (``pq``), the card synchronised.
-    Returns (arrays dict, rows_per_shard).
+    ``alpha``), built on the shard's own device from its rows, which stay
+    there: no shard's rows pass through another card (``x`` may lie on the
+    host).  The PQ codebook is trained once, on the mesh's first device,
+    and each shard's codes are encoded on its device with a copy of it; the
+    entry medoids are computed per shard.  ``x`` is truncated to a multiple
+    of the shard count.  ``timings`` (a dict) gains each shard's build
+    seconds (``shard_<s>``) and the PQ tier's (``pq``), the cards
+    synchronised.  Returns (arrays dict, rows_per_shard): shard-major
+    tensors on a one-device mesh, :class:`ShardedRows` on a mesh of
+    several devices.
     """
-    dev = mesh.device
     n_shards = mesh.n_shards
-    x = torch.as_tensor(x, dtype=torch.float32, device=dev)
+    x = torch.as_tensor(x, dtype=torch.float32)
     n = (x.shape[0] // n_shards) * n_shards
     x = x[:n]
     per = n // n_shards
-    clock = build_mod._phase_clock(timings, dev)
-    adjs = []
+    rows, adjs = [], []
     for s in range(n_shards):
-        with clock(f"shard_{s}"):
-            adjs.append(build_mod.build_with_alpha(
-                _shard_rows(x, s, per), constant_alpha(per, alpha, dev),
-                build_cfg))
-    with clock("pq"):
-        book = train_pq(x, m=m_pq, iters=pq_iters, seed=seed)
-        codes = pq_encode(x, book)
-    arrays = {"adj": torch.cat(adjs), "codes": codes, "vectors": x,
-              "centroids": book.centroids,
-              "entries": shard_medoids(x, n_shards)}
+        dev = mesh.shard_devices[s]
+        with _on_device(dev):
+            x_s = x[s * per:(s + 1) * per].to(dev)
+            with build_mod._phase_clock(timings, dev)(f"shard_{s}"):
+                adjs.append(build_mod.build_with_alpha(
+                    x_s, constant_alpha(per, alpha, dev), build_cfg))
+        rows.append(x_s)
+    mesh.synchronize()
+    t0 = time.perf_counter()
+    book = train_pq(_pq_sample(x, mesh.device, seed), m=m_pq, iters=pq_iters,
+                    seed=seed, sample=None)
+    codes = []
+    for x_s in rows:
+        with _on_device(x_s.device):
+            codes.append(pq_encode(x_s, PqCodebook(
+                book.centroids.to(x_s.device))))
+    mesh.synchronize()
+    if timings is not None:
+        timings["pq"] = timings.get("pq", 0.0) + time.perf_counter() - t0
+    one = not mesh.spread and x.device == mesh.device
+    arrays = {"adj": _assemble(mesh, adjs),
+              "codes": _assemble(mesh, codes),
+              "vectors": x if one else _assemble(mesh, rows),
+              "centroids": book.centroids}
+    entries = shard_medoids(ShardedRows(rows), n_shards)
+    arrays["entries"] = (entries if mesh.spread
+                         else torch.cat(entries.parts))
     return arrays, per
 
 
 def distributed_search(mesh, index_arrays: dict, queries, shard_ok=None,
                        shard_laws=None, **kw):
     """Eager entry (tests, examples): ``index_arrays`` holds adj / codes /
-    vectors / centroids (optionally entries) shard-major on the mesh's
-    device.  Without ``entries`` the per-shard medoids are recomputed on
-    every call.  ``shard_laws`` is an optional (lam (S,), l_min (S,)) pair.
+    vectors / centroids (optionally entries), shard-major on a one-device
+    mesh's device or placed on the mesh (:func:`place_arrays`).  Without
+    ``entries`` the per-shard medoids are recomputed on every call.
+    ``shard_laws`` is an optional (lam (S,), l_min (S,)) pair.
     """
     step = make_distributed_search(
         mesh, per_shard_laws=shard_laws is not None, **kw)
@@ -497,5 +655,6 @@ def distributed_search(mesh, index_arrays: dict, queries, shard_ok=None,
                                 device=dev))
     queries = torch.as_tensor(queries, dtype=torch.float32, device=dev)
     return step(index_arrays["adj"], index_arrays["codes"],
-                index_arrays["vectors"], index_arrays["centroids"], queries,
-                shard_ok, entries, *laws)
+                index_arrays["vectors"],
+                torch.as_tensor(index_arrays["centroids"], device=dev),
+                queries, shard_ok, entries, *laws)

@@ -46,11 +46,21 @@ def tiered_index_from_arrays(arrays: dict, device="cuda") -> TieredIndex:
 
 
 def sharded_arrays_from_arrays(arrays: dict, device="cuda") -> dict:
-    """A shard-major distributed index (the dict of
+    """A distributed index (the dict of
     :func:`repro_torch.distributed.sharded_search.build_sharded_arrays`)
-    from numpy arrays of the same keys; ``entries`` is optional."""
-    dev = resolve_device(device)
+    from numpy arrays of the same keys, shard-major; ``entries`` is
+    optional.  ``device`` is one device (shard-major tensors there) or a
+    :class:`~repro_torch.distributed.mesh.ShardMesh`: each shard's rows are
+    then placed on its own device
+    (:func:`~repro_torch.distributed.sharded_search.place_arrays`)."""
     dtypes = {"adj": np.int32, "codes": np.uint8, "vectors": np.float32,
               "centroids": np.float32, "entries": np.int32}
+    if hasattr(device, "shard_devices"):          # a ShardMesh
+        from repro_torch.distributed.sharded_search import place_arrays
+
+        return place_arrays(device, {
+            name: _tensor(arrays[name], dt, "cpu")
+            for name, dt in dtypes.items() if name in arrays})
+    dev = resolve_device(device)
     return {name: _tensor(arrays[name], dt, dev)
             for name, dt in dtypes.items() if name in arrays}

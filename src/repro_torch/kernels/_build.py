@@ -13,6 +13,7 @@ so a caller that needs several kernels pays for the slowest build only.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import pathlib
@@ -139,6 +140,26 @@ def need(t: torch.Tensor, name: str, dtype, shape, dev) -> None:
 
 def stream(dev: torch.device) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
+
+
+def on_card(fn):
+    """Run a ``*_cuda`` wrapper with its tensors' card current.  The
+    libraries launch on the runtime's current device and read it for their
+    caches (occupancy, shared-memory attributes), so a tensor on another
+    card than the current one would pair its stream with the wrong device.
+    The card is the first argument's (the first leaf of a state tuple); a
+    tensor off the card passes through to the wrapper's own check."""
+
+    @functools.wraps(fn)
+    def wrapped(*args, **kw):
+        first = args[0]
+        dev = (first[0] if isinstance(first, (tuple, list)) else first).device
+        if dev.type != "cuda":
+            return fn(*args, **kw)
+        with torch.cuda.device(dev):
+            return fn(*args, **kw)
+
+    return wrapped
 
 
 _COUNT_LOCK = threading.Lock()

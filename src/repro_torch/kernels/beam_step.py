@@ -92,6 +92,7 @@ def check_walk_args(state, ctxs, adj, table, *, kind, max_hops: int,
     return q, width, r, n, nw, dim, k
 
 
+@_build.on_card
 def beam_walk_cuda(state, ctxs, adj, table, budgets, hop_limits, *, kind,
                    max_hops: int, active_count: torch.Tensor | None = None):
     """Walk every lane of ``state`` on the card, in place, until it freezes
@@ -166,6 +167,7 @@ def check_hop_rows_args(state, u, active, rows, ctxs, table, *, kind):
     return q, width, r, nw, m, k
 
 
+@_build.on_card
 def beam_hop_rows_cuda(state, u, active, rows, ctxs, table, budgets,
                        hop_limits, *, kind):
     """One row-fed hop of every lane on the card, in place (semantics of

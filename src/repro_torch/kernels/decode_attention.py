@@ -86,6 +86,7 @@ def decode_attention_meta(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.empty((b, hq, d), dtype=torch.float32, device=k.device)
 
 
+@_build.on_card
 def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           kv_len: torch.Tensor) -> torch.Tensor:
     """q (B, Hq, d); k, v (B, S, Hkv, d) bfloat16; kv_len (B,) integer, all

@@ -48,6 +48,7 @@ def l2_distance_meta(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return torch.empty((nq, n), dtype=torch.float32, device=q.device)
 
 
+@_build.on_card
 def l2_distance_cuda(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """(Q, D) x (N, D) -> (Q, N) float32 squared L2 on the card.  Both
     operands float32, or both bfloat16 (accumulated in float32)."""

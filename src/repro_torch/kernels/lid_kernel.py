@@ -39,6 +39,7 @@ def lid_estimate_meta(knn_d2: torch.Tensor) -> torch.Tensor:
     return torch.empty((b,), dtype=torch.float32, device=knn_d2.device)
 
 
+@_build.on_card
 def lid_estimate_cuda(knn_d2: torch.Tensor) -> torch.Tensor:
     """(B, k) ascending squared k-NN distances (float32, on the card) ->
     (B,) LID estimates."""

@@ -52,6 +52,7 @@ def pq_scan_meta(luts: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     return torch.empty((q, n), dtype=torch.float32, device=luts.device)
 
 
+@_build.on_card
 def pq_scan_cuda(luts: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     """(Q, M, K) float32 LUTs x (N, M) uint8 codes on the card -> (Q, N)
     float32 ADC distances (codes must lie below K)."""

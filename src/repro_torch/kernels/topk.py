@@ -80,6 +80,7 @@ def topk_meta(d: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
             torch.empty((q, k), dtype=torch.int32, device=d.device))
 
 
+@_build.on_card
 def topk_cuda(d: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     """(Q, N) float32 on the card -> ((Q, k) ascending values, (Q, k) int32
     ids); ties go to the lower id."""

@@ -57,8 +57,13 @@ class Cell:
     donate: tuple[int, ...] = ()
     note: str = ""
     config: Any = None            # the model / dataset config it was built at
-    # MCGI: the walk's state and outputs beside the index (shapes only).
+    # MCGI: the walk's state and outputs beside the index (shapes only),
+    # the arguments laid over the shards (the rest replicated), the shards
+    # and the cards they spread over in contiguous blocks.
     extra_specs: dict[str, Any] = dataclasses.field(default_factory=dict)
+    sharded_args: tuple[int, ...] = ()
+    n_shards: int = 1
+    cards: int = 1
 
 
 def _meta(shape, dtype) -> torch.Tensor:
@@ -269,7 +274,8 @@ def _mcgi_cell(spec: cfg_base.ArchSpec, cell: cfg_base.ShapeCell, mesh,
                 "local_id": _meta((nq, k), i32)},
     }
     return Cell(spec.arch_id, cell.name, None, args, config=cfg,
-                extra_specs=extra,
+                extra_specs=extra, sharded_args=(0, 1, 2, 5, 6, 7, 8),
+                n_shards=n_shards, cards=mesh_mod.n_devices(mesh),
                 note=("walks under host control; accounted for by shapes "
                       f"(kernel beam_step.{'pq' if cfg.m_pq else 'exact'})"))
 

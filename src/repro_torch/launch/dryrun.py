@@ -12,6 +12,14 @@ MCGI serve cell walks under host control, so it is accounted for by its
 shapes (``cost.accounting`` "shapes": its walk is not priced).  Nothing
 here needs a card.
 
+``--cards N`` prices an MCGI serve cell per card with its 256 shards in
+contiguous blocks over N cards, as the reference's
+``peak_per_device_bytes`` prices a device: each card holds its shards'
+rows, entries and laws, the replicated codebook, queries and LUTs, one
+query chunk's walk state for each of its shards (their walks overlap on
+their streams, at most ``STREAMS_PER_POOL`` of them), and the first card
+the gathered candidates and the merged result.
+
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen2-7b --shape train_4k
   python -m repro_torch.launch.dryrun --arch minicpm-2b --shape train_4k \
@@ -19,9 +27,11 @@ Usage:
   python -m repro_torch.launch.dryrun --all     # every cell, a process each
   python -m repro_torch.launch.dryrun --list
   python -m repro_torch.launch.dryrun --table   # the records as markdown
+  python -m repro_torch.launch.dryrun --arch mcgi-sift1b --shape serve \
+      --cards 4                                 # per card, 256 shards on 4
 
 The reference's ``--multipod`` (a 2 x 16 x 16 mesh), its collective bytes
-and its loop-differential extrapolation have no counterpart on one card.
+and its loop-differential extrapolation have no counterpart here.
 """
 from __future__ import annotations
 
@@ -34,6 +44,8 @@ import time
 
 import torch
 
+from repro_torch.distributed.mesh import STREAMS_PER_POOL
+
 OUT_DIR = (pathlib.Path(__file__).resolve().parents[3] / "experiments"
            / "dryrun_torch")
 
@@ -42,6 +54,12 @@ def _tensors(tree) -> list[torch.Tensor]:
     from repro_torch.training import optimizer as opt_mod
 
     return [t for _, t in opt_mod.flatten(tree)]
+
+
+def _nbytes(tree) -> int:
+    from repro_torch.launch import hlo_analysis as ha
+
+    return sum(ha.tensor_bytes(t) for t in _tensors(tree))
 
 
 def _storage_bytes(tensors, device) -> dict[int, int]:
@@ -63,14 +81,19 @@ def measure(cell) -> dict:
             for a in cell.arg_specs]
     arg_bytes = sum(each)
     arg_store = _storage_bytes(args, dev)
-    if cell.fn is None:                       # MCGI: shapes only
-        extra = sum(ha.tensor_bytes(t) for t in _tensors(cell.extra_specs))
-        out = sum(ha.tensor_bytes(t)
-                  for t in _tensors(cell.extra_specs.get("out", {})))
-        peak = sum(arg_store.values()) + extra
-        memory = {"argument_bytes": arg_bytes, "argument_bytes_each": each,
-                  "output_bytes": out, "temp_bytes": extra - out,
-                  "alias_bytes": 0, "peak_per_device_bytes": peak}
+    if cell.fn is None:                       # MCGI: shapes only, a card
+        ex = cell.extra_specs
+        per_card = -(-cell.n_shards // cell.cards)   # the first card's
+        each = [b // cell.n_shards * per_card if i in cell.sharded_args
+                else b for i, b in enumerate(each)]
+        walks = min(per_card, STREAMS_PER_POOL)
+        out = _nbytes(ex["out"])
+        temp = (_nbytes(ex["ctxs"]) + walks * _nbytes(ex["walk"])
+                + _nbytes(ex["candidates"]))
+        memory = {"argument_bytes": sum(each), "argument_bytes_each": each,
+                  "output_bytes": out, "temp_bytes": temp,
+                  "alias_bytes": 0,
+                  "peak_per_device_bytes": sum(each) + temp + out}
         cost = {"flops_per_device": 0, "flops_by_dtype": {},
                 "bytes_accessed_per_device": 0, "accounting": "shapes"}
         return {"memory": memory, "cost": cost, "kernels": {}, "seconds": 0.0}
@@ -103,21 +126,25 @@ def measure(cell) -> dict:
 
 
 def record_path(out_dir: pathlib.Path, arch: str, shape: str,
-                smoke: bool = False, batch: int | None = None
-                ) -> pathlib.Path:
+                smoke: bool = False, batch: int | None = None,
+                cards: int = 1) -> pathlib.Path:
     tag = ("-smoke" if smoke else "") + (f"-b{batch}" if batch else "")
-    return out_dir / f"{arch}__{shape}{tag}__card1.json"
+    return out_dir / f"{arch}__{shape}{tag}__card{cards}.json"
 
 
 def run_one(arch: str, shape: str, out_dir: pathlib.Path,
-            smoke: bool = False, batch: int | None = None) -> dict:
+            smoke: bool = False, batch: int | None = None,
+            cards: int = 1) -> dict:
     from repro_torch.launch import cells as cells_mod
     from repro_torch.launch import hlo_analysis as ha
     from repro_torch.launch.mesh import make_production_mesh
 
     t0 = time.perf_counter()
-    mesh = make_production_mesh(device="meta")
+    mesh = make_production_mesh(device="meta", cards=cards)
     cell = cells_mod.build_cell(arch, shape, mesh, smoke=smoke, batch=batch)
+    if cards > 1 and cell.fn is not None:
+        raise ValueError(f"--cards prices the MCGI serve cells; {arch} runs "
+                         f"on one card")
     t_build = time.perf_counter() - t0
     m = measure(cell)
     cost = m["cost"]
@@ -131,7 +158,7 @@ def run_one(arch: str, shape: str, out_dir: pathlib.Path,
         "batch": batch,
         "mesh": list(mesh.shape.values()),
         "mesh_axes": list(mesh.axis_names),
-        "n_chips": 1,
+        "n_chips": cards,
         "note": cell.note,
         "timings_s": {"build": t_build, "run": m["seconds"]},
         "memory": m["memory"],
@@ -142,9 +169,10 @@ def run_one(arch: str, shape: str, out_dir: pathlib.Path,
         "torch_version": torch.__version__,
     }
     out_dir.mkdir(parents=True, exist_ok=True)
-    record_path(out_dir, arch, shape, smoke, batch).write_text(
+    record_path(out_dir, arch, shape, smoke, batch, cards).write_text(
         json.dumps(record, indent=2))
-    print(f"[dryrun] {arch}/{shape} OK  peak={peak / 1e9:.3f} GB "
+    print(f"[dryrun] {arch}/{shape} OK  "
+          f"peak={peak / 1e9:.3f} GB{' a card' if cards > 1 else ''} "
           f"flops={cost['flops_per_device']:.3e} "
           f"bytes={cost['bytes_accessed_per_device']:.3e} "
           f"dominant={terms['dominant']} "
@@ -177,16 +205,17 @@ def run_all(out_dir: pathlib.Path, only_missing: bool) -> int:
     return 0
 
 
-def table(out_dir: pathlib.Path) -> list[str]:
+def table(out_dir: pathlib.Path, cards: int = 1) -> list[str]:
     """One markdown row a cell from the full-config records in
-    ``out_dir``, in ``all_cells`` order (a missing record says so)."""
+    ``out_dir`` at ``cards`` cards, in ``all_cells`` order (a missing
+    record says so)."""
     from repro_torch.launch import cells as cells_mod
 
     rows = ["| cell | peak GB | fits 80 GB | FLOPs by dtype | compute ms | "
             "dominant | bound ms | kernels not priced |",
             "|---|---|---|---|---|---|---|---|"]
     for arch, shape in cells_mod.all_cells():
-        path = record_path(out_dir, arch, shape)
+        path = record_path(out_dir, arch, shape, cards=cards)
         if not path.exists():
             rows.append(f"| {arch} / {shape} | no record | | | | | | |")
             continue
@@ -220,6 +249,9 @@ def main(argv=None) -> int:
     ap.add_argument("--list", action="store_true")
     ap.add_argument("--table", action="store_true",
                     help="print the records under --out as a table")
+    ap.add_argument("--cards", type=int, default=1,
+                    help="price an MCGI serve cell per card, its 256 shards "
+                         "over N cards")
     ap.add_argument("--out", default=str(OUT_DIR))
     args = ap.parse_args(argv)
     out_dir = pathlib.Path(args.out)
@@ -232,13 +264,14 @@ def main(argv=None) -> int:
                 print(f"{arch_id:24s} {cell.name:16s} {cell.kind}")
         return 0
     if args.table:
-        print("\n".join(table(out_dir)))
+        print("\n".join(table(out_dir, args.cards)))
         return 0
     if args.all:
         return run_all(out_dir, args.only_missing)
     if not (args.arch and args.shape):
         ap.error("--arch and --shape (or --all / --list)")
-    run_one(args.arch, args.shape, out_dir, batch=args.batch)
+    run_one(args.arch, args.shape, out_dir, batch=args.batch,
+            cards=args.cards)
     return 0
 
 

@@ -44,7 +44,8 @@ Timing runs on the wall-clock seam (``WallClock`` + ``ThreadDispatcher``).
 
 ``--distributed N`` splits the dataset into N shards, each with its own
 locally built sub-graph (static alpha 1.2) over one PQ codebook, on a
-one-axis mesh ``(N,) ("data",)`` on the launcher's device, and serves
+one-axis mesh ``(N,) ("data",)`` over every visible card (the CPU with
+``--device cpu``), each shard's rows on its own card, and serves
 scatter-gather through a ``DistributedBackend``: staged (probe, host
 bucketing, per-bucket continues into the hedged merge) with
 ``--adaptive``, one monolithic step per batch otherwise.  ``--calibrate
@@ -110,8 +111,9 @@ def arrival_times(rng, n: int, qps: float, arrival: str) -> np.ndarray:
 
 
 def _distributed_engine(args, x, queries, budget_cfg, cfg):
-    """Shard the dataset on a one-axis mesh on the launcher's device and
-    build the distributed serving engine (staged when adaptive; per-shard
+    """Shard the dataset on a one-axis mesh over the visible cards (the
+    launcher's device when it names one, or the CPU) and build the
+    distributed serving engine (staged when adaptive; per-shard
     budget laws with --calibrate --per-shard).  Returns (engine, x cut to
     the sharded row count)."""
     from repro_torch import serving
@@ -119,20 +121,21 @@ def _distributed_engine(args, x, queries, budget_cfg, cfg):
     from repro_torch.distributed import make_mesh
     from repro_torch.distributed import sharded_search as ss
 
-    mesh = make_mesh((args.distributed,), ("data",), args.device)
+    mesh = make_mesh((args.distributed,), ("data",),
+                     None if args.device == "cuda" else args.device)
     n_shards = mesh.n_shards
     t0 = time.time()
     arrays, per = ss.build_sharded_arrays(x, mesh, build_cfg=cfg,
                                           m_pq=args.m_pq, seed=args.seed)
     print(f"[serve] sharded build in {time.time() - t0:.1f}s: "
-          f"{per * n_shards} points over {n_shards} shards ({per}/shard)")
+          f"{per * n_shards} points over {n_shards} shards ({per}/shard); "
+          f"{mesh.describe()}")
     shard_laws = None
     if args.calibrate:
         fit = calibrate.calibrate_budget_law_per_shard(
             calibrate.shard_exact_recall_evals(
                 arrays["vectors"], arrays["adj"], arrays["entries"], queries,
-                n_shards, k=args.k, sample=args.calib_sample,
-                device=args.device),
+                n_shards, k=args.k, sample=args.calib_sample, mesh=mesh),
             budget_cfg, recall_target=args.recall_target, n_shards=n_shards)
         shard_laws = fit.law_arrays()
         # hop_factor is global in the step: serve the largest fitted one.
@@ -150,7 +153,7 @@ def _distributed_engine(args, x, queries, budget_cfg, cfg):
     engine = serving.SearchEngine(backend, budget_cfg, k=args.k,
                                   beam_width=args.beam,
                                   num_buckets=args.buckets)
-    return engine, arrays["vectors"]
+    return engine, x[:per * n_shards]
 
 
 def _serve_front_door(args, backend, qn, gt, budget_cfg) -> None:

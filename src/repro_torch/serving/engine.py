@@ -63,6 +63,7 @@ from repro_torch import resolve_device
 from repro_torch.core import calibrate as calib
 from repro_torch.core import search as search_mod
 from repro_torch.distributed import sharded_search as ss
+from repro_torch.distributed.mesh import place_rows
 from repro_torch.index import disk as disk_mod
 from repro_torch.pq import PqCodebook
 from repro_torch.serving import pipeline as pipe
@@ -499,13 +500,16 @@ class DistributedBackend:
       (``dispatch`` / ``collect``), the only shape that runs fixed-beam.
 
     ``shard_laws=(lam (S,), l_min (S,))`` threads per-shard budget laws
-    through both shapes as runtime tensors.  ``arrays`` is the shard-major
-    dict of :func:`~repro_torch.distributed.sharded_search
+    through both shapes as runtime tensors, each shard's pair on its card.
+    ``arrays`` is the dict of :func:`~repro_torch.distributed.sharded_search
     .build_sharded_arrays` (or
-    :func:`repro_torch.index.convert.sharded_arrays_from_arrays`), moved to
-    the mesh's device.  There is no probe-horizon view of the walk on the
-    host (``partial_parts``), so an engine over this backend serves no
-    partial results, and filters are refused, as in the reference.
+    :func:`repro_torch.index.convert.sharded_arrays_from_arrays`), shard-major
+    or placed; the backend holds it placed on the mesh
+    (:func:`~repro_torch.distributed.sharded_search.place_arrays`): each
+    shard's rows on its own card, where its walks run on its own stream.
+    There is no probe-horizon view of the walk on the host
+    (``partial_parts``), so an engine over this backend serves no partial
+    results, and filters are refused, as in the reference.
     """
 
     prefetches = False
@@ -518,22 +522,17 @@ class DistributedBackend:
         self.mesh = mesh
         self.device = mesh.device
         n_shards = mesh.n_shards
-        self.arrays = {name: torch.as_tensor(a, device=self.device)
-                       for name, a in arrays.items()}
+        self.arrays = ss.place_arrays(mesh, arrays)
         self.rows_per_shard = self.arrays["vectors"].shape[0] // n_shards
-        if "entries" not in self.arrays:
-            self.arrays["entries"] = ss.shard_medoids(self.arrays["vectors"],
-                                                      n_shards)
         self.set_shard_ok(shard_ok if shard_ok is not None
                           else np.ones((n_shards,), bool))
         self.beam_budget = beam_budget
         self.shard_laws = None
         if shard_laws is not None:
             self.shard_laws = (
-                torch.as_tensor(shard_laws[0], dtype=torch.float32,
-                                device=self.device),
-                torch.as_tensor(shard_laws[1], dtype=torch.int32,
-                                device=self.device))
+                place_rows(mesh, shard_laws[0], dtype=torch.float32),
+                place_rows(mesh, shard_laws[1], dtype=torch.int32))
+            mesh.synchronize()
         per_shard = self.shard_laws is not None
         # One more bucket costs one more continue over every shard (n_shards
         # walks and the merge), so the scheduler's modelled launch cost

@@ -122,6 +122,12 @@ def _reference(out_path: str) -> None:
     for name, a in arrays.items():
         out[f"arr_{name}"] = np.asarray(a)
     out["q"] = q
+    # Where each shard's rows live: its device's position in the mesh.
+    devs = list(mesh.devices.flat)
+    place = np.full(S, -1)
+    for sh in arrays["vectors"].addressable_shards:
+        place[(sh.index[0].start or 0) // PER] = devs.index(sh.device)
+    out["placement"] = place
     ok_all = jnp.ones((S,), jnp.bool_)
 
     def dead(s):
@@ -285,13 +291,22 @@ def _mesh(device="cpu"):
     return make_mesh(*MESH, device=device)
 
 
+def _listed_mesh():
+    """The mesh over an explicit list of 8 CPU device entries: a spread
+    mesh, whose index is held as one block of rows a shard."""
+    return make_mesh(*MESH, devices=["cpu"] * S)
+
+
 def _budget(**kw):
     return tsearch.AdaptiveBeamBudget(**{**BUDGET_KW, **kw})
 
 
-def _port_arrays(ref) -> dict:
+def _port_arrays(ref, mesh=None) -> dict:
+    """The reference's index: shard-major on the CPU, or placed on
+    ``mesh``."""
     return convert.sharded_arrays_from_arrays(
-        {k[4:]: v for k, v in ref.items() if k.startswith("arr_")}, "cpu")
+        {k[4:]: v for k, v in ref.items() if k.startswith("arr_")},
+        "cpu" if mesh is None else mesh)
 
 
 def _same(got, want):
@@ -331,8 +346,7 @@ def test_hedged_merge_bit_identical_with_ties_and_a_dead_shard(ref, mode):
     assert (got[1].numpy() != 3).all() or np.isinf(got[0].numpy()).all()
 
 
-@pytest.mark.parametrize("name", list(SEARCHES))
-def test_distributed_search_bit_identical(ref, name):
+def _check_search(ref, name, mesh=None):
     spec = SEARCHES[name]
     kw = _search_kw(spec)
     if spec.get("budget"):
@@ -342,7 +356,7 @@ def test_distributed_search_bit_identical(ref, name):
         ok = np.ones(S, bool)
         ok[spec["dead"]] = False
     got = tss.distributed_search(
-        _mesh(), _port_arrays(ref), ref["q"], shard_ok=ok,
+        mesh or _mesh(), _port_arrays(ref, mesh), ref["q"], shard_ok=ok,
         shard_laws=LAWS if spec.get("laws") else None, **kw)
     for g, part in zip(got, ("d2", "sid", "lid")):
         _same(g, ref[f"search_{name}_{part}"])
@@ -350,14 +364,23 @@ def test_distributed_search_bit_identical(ref, name):
         assert (got[1].numpy() != spec["dead"]).all()
 
 
-@pytest.mark.parametrize("tag,nq", [("full", NQ), ("ragged", 13)])
-def test_probe_state_bit_identical(ref, tag, nq):
+@pytest.mark.parametrize("name", list(SEARCHES))
+def test_distributed_search_bit_identical(ref, name):
+    _check_search(ref, name)
+
+
+@pytest.mark.parametrize("name", list(SEARCHES))
+def test_distributed_search_bit_identical_on_a_device_list(ref, name):
+    _check_search(ref, name, _listed_mesh())
+
+
+def _check_probe(ref, tag, nq, mesh=None):
     """The (Q, S, ...) probe state (visited words as uint32 patterns, the
     shared context), per-shard budgets, hop limits and LID."""
-    a = _port_arrays(ref)
+    a = _port_arrays(ref, mesh)
     probe = tss.make_distributed_probe(
-        _mesh(), budget_cfg=_budget(), max_hops=MAX_HOPS, query_chunk=CHUNK,
-        budget_buckets=4, per_shard_laws=True)
+        mesh or _mesh(), budget_cfg=_budget(), max_hops=MAX_HOPS,
+        query_chunk=CHUNK, budget_buckets=4, per_shard_laws=True)
     st, b, h, lid = probe(a["adj"], a["codes"], a["vectors"],
                           a["centroids"], torch.from_numpy(ref["q"][:nq]),
                           a["entries"], torch.from_numpy(LAWS[0]),
@@ -370,11 +393,27 @@ def test_probe_state_bit_identical(ref, tag, nq):
     # summed in another order); the reference's LID tolerance holds it.
     np.testing.assert_allclose(lid.numpy(), ref[f"probe_{tag}_9"],
                                rtol=1e-4)
+    return st
 
 
-def test_continue_on_a_lane_subset_bit_identical(ref):
-    a = _port_arrays(ref)
-    mesh = _mesh()
+@pytest.mark.parametrize("tag,nq", [("full", NQ), ("ragged", 13)])
+def test_probe_state_bit_identical(ref, tag, nq):
+    _check_probe(ref, tag, nq)
+
+
+@pytest.mark.parametrize("tag,nq", [("full", NQ), ("ragged", 13)])
+def test_probe_state_bit_identical_on_a_device_list(ref, tag, nq):
+    """Each shard's block of the state stays a block of its own."""
+    mesh = _listed_mesh()
+    st = _check_probe(ref, tag, nq, mesh)
+    for leaf in st[:6]:
+        assert isinstance(leaf, tss.ShardStack) and len(leaf.parts) == S
+        assert all(p.shape[0] == nq for p in leaf.parts)
+
+
+def _check_continue(ref, mesh=None):
+    a = _port_arrays(ref, mesh)
+    mesh = mesh or _mesh()
     probe = tss.make_distributed_probe(
         mesh, budget_cfg=_budget(), max_hops=MAX_HOPS, query_chunk=CHUNK,
         budget_buckets=4, per_shard_laws=True)
@@ -392,6 +431,14 @@ def test_continue_on_a_lane_subset_bit_identical(ref):
         _same(g, ref[f"continue_{i}"])
 
 
+def test_continue_on_a_lane_subset_bit_identical(ref):
+    _check_continue(ref)
+
+
+def test_continue_on_a_lane_subset_bit_identical_on_a_device_list(ref):
+    _check_continue(ref, _listed_mesh())
+
+
 def _keep_same(res, ref, tag):
     _same(res.ids, ref[f"eng_{tag}_ids"])
     _same(res.d2, ref[f"eng_{tag}_d2"])
@@ -402,23 +449,31 @@ def _keep_same(res, ref, tag):
         _same(res.extras["shard_ids"], ref[f"eng_{tag}_sid"])
 
 
-def test_engine_staged_monolithic_and_identity_laws_bit_identical(ref):
-    a, q = _port_arrays(ref), ref["q"]
-    staged = tserving.SearchEngine(_backend(a), _budget(), k=K,
+def _check_engines(ref, mesh=None):
+    a, q = _port_arrays(ref, mesh), ref["q"]
+    staged = tserving.SearchEngine(_backend(a, mesh=mesh), _budget(), k=K,
                                    num_buckets="auto")
     rs = staged.search(q)
     _keep_same(rs, ref, "staged")
-    rm = tserving.SearchEngine(_backend(a), None, k=K).search(q)
+    rm = tserving.SearchEngine(_backend(a, mesh=mesh), None, k=K).search(q)
     _keep_same(rm, ref, "mono")
     np.testing.assert_array_equal(rs.ids, rm.ids)
     np.testing.assert_array_equal(rs.d2, rm.d2)
     ident = (np.full(S, BUDGET_KW["lam"], np.float32),
              np.full(S, BUDGET_KW["l_min"], np.int32))
-    rl = tserving.SearchEngine(_backend(a, shard_laws=ident), _budget(), k=K,
-                               num_buckets="auto").search(q)
+    rl = tserving.SearchEngine(_backend(a, mesh=mesh, shard_laws=ident),
+                               _budget(), k=K, num_buckets="auto").search(q)
     _keep_same(rl, ref, "ident")
     np.testing.assert_array_equal(rl.ids, rs.ids)
     np.testing.assert_array_equal(rl.d2, rs.d2)
+
+
+def test_engine_staged_monolithic_and_identity_laws_bit_identical(ref):
+    _check_engines(ref)
+
+
+def test_engine_staged_monolithic_and_identity_laws_on_a_device_list(ref):
+    _check_engines(ref, _listed_mesh())
 
 
 def test_engine_stream_permutation_and_coalescing_bit_identical(ref):
@@ -457,8 +512,8 @@ def test_engine_zero_query_batch_keeps_the_distributed_shapes(ref):
     assert mono.search(ref["q"][:0]).extras["shard_ids"].shape == (0, K)
 
 
-def test_engine_mid_stream_fault_bit_identical(ref):
-    fb = _backend(_port_arrays(ref))
+def _check_fault(ref, mesh=None):
+    fb = _backend(_port_arrays(ref, mesh), mesh=mesh)
     eng = tserving.SearchEngine(fb, _budget(), k=K, num_buckets=None)
     dead = np.ones(S, bool)
     dead[3] = False
@@ -470,6 +525,14 @@ def test_engine_mid_stream_fault_bit_identical(ref):
             fb.set_shard_ok(dead)
     assert (results[-1].extras["shard_ids"] != 3).all()
     assert np.isfinite(results[-1].d2).all()
+
+
+def test_engine_mid_stream_fault_bit_identical(ref):
+    _check_fault(ref)
+
+
+def test_engine_mid_stream_fault_bit_identical_on_a_device_list(ref):
+    _check_fault(ref, _listed_mesh())
 
 
 def test_shard_medoids_match_reference(ref):
@@ -766,6 +829,48 @@ def test_mesh_names_its_axes_and_device():
             make_mesh(shape, names, "cpu")
 
 
+def test_mesh_places_shards_as_the_reference(ref):
+    """A (2, 4) mesh over 8 devices puts shard s where the reference's
+    ``NamedSharding(mesh, P(axes, None))`` puts its rows."""
+    mesh = make_mesh(*MESH, devices=["cpu"] * S)
+    assert list(mesh.placement) == ref["placement"].tolist()
+    assert mesh.shard_devices == (torch.device("cpu"),) * S
+
+
+@pytest.mark.parametrize("n_dev", [1, 2, 4])
+def test_mesh_spreads_shards_in_contiguous_blocks(n_dev):
+    mesh = make_mesh(*MESH, devices=["cpu"] * n_dev)
+    assert mesh.placement == tuple(s * n_dev // S for s in range(S))
+    assert list(mesh.placement) == sorted(mesh.placement)
+    assert [mesh.placement.count(p) for p in range(n_dev)] == \
+        [S // n_dev] * n_dev
+    assert mesh.spread == (n_dev > 1) and mesh.device == torch.device("cpu")
+    assert mesh.streams == (None,) * S
+    with pytest.raises(ValueError):
+        make_mesh(*MESH, devices=["cpu"] * (S + 1))
+    with pytest.raises(ValueError):
+        make_mesh(*MESH, devices=["cpu"], device="cpu")
+
+
+def test_placed_index_holds_one_block_a_shard(ref):
+    """``place_arrays`` on a spread mesh: every shard's rows a block of its
+    own, gathered back to the shard-major arrays on request; a one-device
+    mesh's build stays shard-major."""
+    mesh = _listed_mesh()
+    a = _port_arrays(ref, mesh)
+    for name in ("adj", "codes", "vectors", "entries"):
+        t = a[name]
+        assert isinstance(t, tss.ShardedRows) and len(t.parts) == S
+        assert t.shape == ref[f"arr_{name}"].shape
+        _same(t.gather(), ref[f"arr_{name}"])
+    assert a["entries"].parts[0].shape == (1,)
+    assert tss.place_arrays(mesh, a)["adj"] is a["adj"]
+    with pytest.raises(ValueError, match="place the index"):
+        tss.distributed_search(mesh, {**a, "adj": torch.zeros(
+            (N, 8), dtype=torch.int32, device="meta")}, ref["q"],
+            beam_width=BEAM, max_hops=MAX_HOPS, k=K, query_chunk=CHUNK)
+
+
 def test_build_sharded_arrays_builds_each_shard_alone():
     """Every shard's adjacency is the port's own ``build_with_alpha`` on
     its slice (shard-local ids), entries are ``shard_medoids``, and a
@@ -963,6 +1068,162 @@ def test_distributed_stream_under_thread_switches(ref):
         sys.setswitchinterval(old)
     assert not any(t.is_alive() for t in threads)
     assert not errors, errors[:3]
+
+
+def _card_world(dev, mesh):
+    """A small float world built on ``mesh`` from numpy seeds: (arrays,
+    queries on the mesh's device, the staged budget)."""
+    x, q = _float_world(4096, 16, 64, seed=8)
+    arrays, _ = tss.build_sharded_arrays(
+        x, mesh, build_cfg=tbuild.BuildConfig(degree=8, beam_width=16,
+                                              iters=1, batch=256,
+                                              max_hops=32), m_pq=4)
+    budget = tsearch.AdaptiveBeamBudget(l_min=4, l_max=16, lam=0.35,
+                                        center=6.0)
+    return arrays, torch.from_numpy(q).to(dev), budget
+
+
+@pytest.mark.gpu
+def test_shard_streams_equal_each_shard_alone_on_card(cuda):
+    """One card, a stream a shard: each shard's top-k (the merge's inputs)
+    equals its walk run alone on the card's default stream, and a staged
+    engine's stream does not move under a short switch interval."""
+    mesh = make_mesh(*MESH, devices="cuda:0")
+    assert len(set(mesh.streams)) == S
+    arrays, q, budget = _card_world(cuda, mesh)
+    kw = dict(beam_width=16, max_hops=32, k=5, query_chunk=16)
+    got, real = {}, tss._hedged_merge
+
+    def keep(d2, ids, *args, **kw_):
+        got["d2"], got["ids"] = d2.cpu(), ids.cpu()
+        return real(d2, ids, *args, **kw_)
+
+    a = tss.place_arrays(mesh, arrays)
+    tss._hedged_merge = keep
+    try:
+        tss.distributed_search(mesh, a, q, beam_budget=budget,
+                               budget_buckets=4, **kw)
+    finally:
+        tss._hedged_merge = real
+    ctxs = tss._shard_ctxs(a["centroids"], q, True)
+    for s in range(S):
+        d2, ids = tss._local_search(
+            a["adj"].parts[s], a["codes"].parts[s], a["vectors"].parts[s],
+            ctxs, q, a["entries"].parts[s][0], use_pq=True,
+            beam_budget=budget,
+            bucket_ceilings=tss._bucket_ceilings(budget, 4), **kw)
+        assert torch.equal(d2.cpu(), got["d2"][s]), s
+        assert torch.equal(ids.cpu(), got["ids"][s]), s
+    eng = tserving.SearchEngine(tserving.DistributedBackend(
+        mesh, arrays, beam_budget=budget, budget_buckets=4, **kw), budget,
+        k=5)
+    batches = [q[:16].cpu().numpy(), q[16:48].cpu().numpy(),
+               q[48:].cpu().numpy()]
+    want = [r.ids for r in eng.search_batches(batches)]
+    errors: list = []
+
+    def worker():
+        try:
+            for _ in range(3):
+                res = [r.ids for r in eng.search_batches(batches)]
+                if not all((g == w).all() for g, w in zip(res, want)):
+                    errors.append("results moved")
+        except Exception as e:      # reported below
+            errors.append(repr(e))
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=worker) for _ in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads)
+    assert not errors, errors[:3]
+
+
+@pytest.fixture
+def two_cards(cuda):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards or more")
+    return torch.cuda.device_count()
+
+
+@pytest.mark.gpu
+def test_mesh_over_every_card_equals_one_card(two_cards):
+    """The (2, 4) mesh over every card: each shard's rows on its own card,
+    and every search, probe state and engine result bit-identical to the
+    same mesh on one card."""
+    one = make_mesh(*MESH, devices="cuda:0")
+    every = make_mesh(*MESH)
+    assert len(every.devices) == min(two_cards, S)
+    q_dev = torch.device("cuda", 0)
+    arrays, q, budget = _card_world(q_dev, one)
+    placed = tss.place_arrays(every, arrays)
+    for s, d in enumerate(every.shard_devices):
+        assert placed["vectors"].parts[s].device == d
+    kw = dict(beam_width=16, max_hops=32, k=5, query_chunk=16)
+    laws = (LAWS[0], LAWS[1])
+    for extra in (dict(), dict(beam_budget=budget, budget_buckets=4),
+                  dict(beam_budget=budget, budget_buckets=4, merge="flat",
+                       shard_laws=laws)):
+        want = tss.distributed_search(one, arrays, q, **kw, **extra)
+        got = tss.distributed_search(every, placed, q, **kw, **extra)
+        for g, w in zip(got, want):
+            assert g.device == q_dev and torch.equal(g, w)
+    probe = {m: tss.make_distributed_probe(
+        m, budget_cfg=budget, max_hops=32, query_chunk=16, budget_buckets=4)
+        for m in (one, every)}
+    a1 = tss.place_arrays(one, arrays)
+    st1 = probe[one](a1["adj"], a1["codes"], a1["vectors"],
+                     a1["centroids"], q, a1["entries"])
+    st2 = probe[every](placed["adj"], placed["codes"], placed["vectors"],
+                       placed["centroids"], q, placed["entries"])
+    for leaf1, leaf2 in zip(st1[0][:6], st2[0][:6]):
+        assert [p.device for p in leaf2.parts] == list(every.shard_devices)
+        assert torch.equal(leaf1.cpu(), leaf2.cpu())
+    for e1, e2 in zip(st1[1:], st2[1:]):
+        assert torch.equal(e1, e2)
+    qs = q.cpu().numpy()
+    for eng_budget in (budget, None):
+        res = [tserving.SearchEngine(tserving.DistributedBackend(
+            m, arrays, beam_budget=budget, budget_buckets=4, **kw),
+            eng_budget, k=5).search(qs) for m in (one, every)]
+        np.testing.assert_array_equal(res[0].ids, res[1].ids)
+        np.testing.assert_array_equal(res[0].d2, res[1].d2)
+
+
+@pytest.mark.gpu
+def test_kernels_launch_on_their_tensors_card(two_cards):
+    """``ops.beam_walk`` and ``ops.topk`` on the last card, launched while
+    the first is current, equal the same calls on the first card."""
+    from repro_torch.core import build as cbuild
+
+    first, last = torch.device("cuda", 0), torch.device("cuda", two_cards - 1)
+    g = torch.Generator(device="cpu").manual_seed(3)
+    n, nq, width, r, d = 5000, 64, 32, 16, 16
+    adj = cbuild.random_graph(n, r, g)
+    table = torch.randint(-8, 9, (n, d), generator=g).float()
+    ctxs = torch.randint(-8, 9, (nq, d), generator=g).float()
+    entry = torch.randint(0, n, (nq,), generator=g, dtype=torch.int32)
+    dist = torch.randint(0, 50, (nq, 4000), generator=g).float()
+
+    def walk(dev):
+        ev = tsearch._exact_eval(table.to(dev))
+        st = tsearch._init_state(ctxs.to(dev), entry.to(dev), ev, n, width,
+                                 None)
+        out = ops.beam_walk(st, ctxs.to(dev), adj.to(dev), table.to(dev),
+                            width, 20, kind="exact", max_hops=ops.MAX_HOPS)
+        return [t.cpu() for t in out] + [
+            t.cpu() for t in ops.topk(dist.to(dev), 17)]
+
+    assert torch.cuda.current_device() == 0
+    for a, b in zip(walk(first), walk(last)):
+        assert torch.equal(a, b)
+    assert torch.cuda.current_device() == 0
 
 
 if __name__ == "__main__":

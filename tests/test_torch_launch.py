@@ -414,6 +414,34 @@ def test_lm_decode_reaches_decode_attention_on_meta():
     assert got["memory"]["alias_bytes"] == cache
 
 
+@pytest.mark.parametrize("cards", [2, 4])
+def test_mcgi_serve_cell_priced_per_card(tmp_path, cards):
+    """``--cards N``: the 256 shards in contiguous blocks over N cards; a
+    card holds its shards' rows, entries and laws (a 1/N share), the
+    replicated codebook and queries whole, and as many walks as before
+    (32 streams' worth, at most)."""
+    mesh = tmesh.make_production_mesh(device="meta", cards=cards)
+    assert tmesh.n_devices(mesh) == cards and mesh.n_shards == 256
+    assert mesh.placement == tuple(s * cards // 256 for s in range(256))
+    one = tdryrun.run_one("mcgi-sift1b", "serve", tmp_path)
+    many = tdryrun.run_one("mcgi-sift1b", "serve", tmp_path, cards=cards)
+    assert (tmp_path / f"mcgi-sift1b__serve__card{cards}.json").exists()
+    assert one["n_chips"] == 1 and many["n_chips"] == cards
+    e1 = one["memory"]["argument_bytes_each"]
+    ec = many["memory"]["argument_bytes_each"]
+    for i in (0, 1, 2, 5, 6, 7, 8):             # laid over the shards
+        assert ec[i] * cards == e1[i]
+    for i in (3, 4):                            # centroids, queries
+        assert ec[i] == e1[i]
+    assert many["memory"]["temp_bytes"] == one["memory"]["temp_bytes"]
+    assert many["memory"]["peak_per_device_bytes"] == (
+        sum(ec) + many["memory"]["temp_bytes"]
+        + many["memory"]["output_bytes"])
+    with pytest.raises(ValueError, match="--cards"):
+        tdryrun.run_one("qwen2-7b", "decode_32k", tmp_path, smoke=True,
+                        cards=cards)
+
+
 def test_mcgi_index_bytes_equal_a_built_backend():
     """The smoke T2I cell's index at the host mesh (2 x 4) against a
     DistributedBackend built on the CPU over the smoke index."""
