@@ -349,8 +349,26 @@ Phases, each printed on its own lines; any failure exits non-zero:
    ids (no Zipfian repeats).
    [examples-train] ``examples/torch_train_lm.py``'s ``main`` for 100
    steps: fails unless the loss improved and the step-100 checkpoint
-   restores equal to the saved state bit for bit; prints tokens/s.  Each
-   phase prints its seconds;
+   restores equal to the saved state bit for bit; prints tokens/s.
+   [lm-train-moe-ep] the expert-parallel MoE schedule
+   (``moe_apply_expert_parallel``) on ("data", "model") meshes over every
+   visible card (on one card the ranks share it; under four cards, a rank
+   a card).  Layer gates, a float32 copy of [lm-train-moe]'s MoE layer 1
+   at 2 x 4,096 tokens on the meshes (1, 4) and (2, 2): at capacity
+   factor 8.0 the output within 1e-5 relative L2 of ``moe_apply``'s one
+   group, aux within 1e-5, no assignment dropped, and the gradients of x,
+   the router and the three expert weights within 1e-4 relative L2 of the
+   one-group path's (the router's non-zero); at the published 1.0 the
+   output within 1e-5 of ``moe_apply`` over the same tokens laid out rank
+   block by rank block, a group a rank (the same drop sets; the drop
+   share printed).  Then 4 steps of [lm-train-moe]'s cell (the same
+   weights, batches and schedule) with ``lm_loss(..., mesh)`` on the mesh
+   (1, 4): metrics finite, lr the schedule's, ``topk`` launched ranks x 3
+   MoE layers x 2 x 4 times; prints the step p50 and the first step's
+   loss beside [lm-train-moe]'s (the drop sets differ by design: capacity
+   is per rank), the bytes a step copies between cards (from the
+   placement and the shapes) and each card's peak memory.  Each phase
+   prints its seconds;
 4c. the recsys and GNN zoo (``repro_torch.models.recsys`` / ``gnn``; no
    kernel of the port runs there, and each path prints that none
    launched).  [recsys-dlrm], [recsys-deepfm], [recsys-mind] and
@@ -4676,6 +4694,13 @@ DRYRUN_WAIT_S = 120                    # [lm-train]'s dry run, at most
 # 8 steps: the launcher's warmup of 5, then 3 of the cosine decay.
 TRAIN_MOE_LAYERS, TRAIN_MOE_BATCH, TRAIN_MOE_STEPS = 4, 1, 8
 ROUTER_GRAD_REL_L2 = 1e-5
+# [lm-train-moe-ep]: the layer gates' meshes and tokens, and the steps.
+EP_AXES = ("data", "model")
+EP_GATE_MESHES = ((1, 4), (2, 2))
+EP_GATE_BATCH = 2                      # x train_4k's 4,096 tokens
+EP_AMPLE_CF = 8.0                      # tests/_distributed_worker.py:155
+EP_REL_L2, EP_AUX_TOL, EP_GRAD_REL_L2 = 1e-5, 1e-5, 1e-4
+EP_TRAIN_MESH, EP_TRAIN_STEPS = (1, 4), 4
 EXAMPLE_TRAIN_STEPS = 100
 
 
@@ -4797,11 +4822,12 @@ def uniform_batches(vocab: int, batch: int, seq: int, seed: int, dev):
 
 
 def train_setup(spec, cfg, dev, seed: int, salt: int, steps: int,
-                batch: int, uniform: bool = False):
+                batch: int, uniform: bool = False, mesh=None):
     """Float32 master weights drawn from the seed on the card, the
-    launcher's optimizer config for the arch, its train step and a data
-    stream (LmBatches' Zipfian draws, or :func:`uniform_batches`):
-    (state, step_fn, data, schedule, opt_cfg)."""
+    launcher's optimizer config for the arch, its train step (``lm_loss``
+    on ``mesh`` when one is given) and a data stream (LmBatches' Zipfian
+    draws, or :func:`uniform_batches`): (state, step_fn, data, schedule,
+    opt_cfg)."""
     import torch
 
     from repro_torch.launch import train as train_launch
@@ -4814,7 +4840,7 @@ def train_setup(spec, cfg, dev, seed: int, salt: int, steps: int,
     params = transformer.init_lm(cfg, g, device=dev, dtype=torch.float32)
     opt_cfg = train_launch.train_config(spec.arch_id, TRAIN_LR, steps)
     step_fn = ts_mod.make_train_step(
-        lambda p, b: transformer.lm_loss(cfg, p, b), opt_cfg)
+        lambda p, b: transformer.lm_loss(cfg, p, b, mesh), opt_cfg)
     state = ts_mod.init_train_state(params)
     s = spec.cell(TRAIN_CELL).meta["seq"]
     if uniform:
@@ -5041,7 +5067,7 @@ def moe_curve(rows: list, dropped: float) -> str:
             f"{dropped:.4f} of routed assignments dropped")
 
 
-def lm_train_moe(dev, card: str, seed: int) -> dict:
+def lm_train_moe(dev, card: str, seed: int) -> tuple[dict, dict]:
     """[lm-train-moe]: deepseek-v2-lite-16b at full width, depth cut to
     TRAIN_MOE_LAYERS (the dense first layer and 3 MoE layers), train_4k's
     sequence at batch TRAIN_MOE_BATCH, TRAIN_MOE_STEPS steps with the
@@ -5053,7 +5079,8 @@ def lm_train_moe(dev, card: str, seed: int) -> dict:
     runs from the same weights follow, their curves printed beside the
     cell's: float32 compute on the same batches (bfloat16 rounding), and
     bfloat16 on uniform token ids (the traffic's Zipfian repeats).
-    Returns the launch counts of the cell's steps."""
+    Returns (the launch counts of the cell's steps, {"first_loss",
+    "p50"}: its first step's loss and its step p50 ms)."""
     import dataclasses
 
     import torch
@@ -5124,7 +5151,225 @@ def lm_train_moe(dev, card: str, seed: int) -> dict:
         log(f"[lm-train-moe] witness, {what}, from the same weights: "
             f"{moe_curve(w_rows, w_drop)}")
     log(f"[lm-train-moe] phase {time.perf_counter() - t_phase:.1f} s")
-    return counts
+    return counts, {"first_loss": rows[0]["loss"], "p50": p50}
+
+
+def ep_layer_grads(p, cfg, x, w, **kw):
+    """The output, aux and the gradients of ``sum(out * w) + aux`` with
+    respect to x, the router and the three expert weights of
+    ``moe.moe_apply(p, cfg, x, **kw)``."""
+    import torch
+
+    from repro_torch.models import moe
+
+    names = ("router", "w_gate", "w_up", "w_down")
+    leaf = {n: p[n].detach().requires_grad_(True) for n in names}
+    x = x.detach().requires_grad_(True)
+    out, aux = moe.moe_apply(dict(p, **leaf), cfg, x, **kw)
+    grads = torch.autograd.grad((out * w).sum() + aux,
+                                [x] + [leaf[n] for n in names])
+    return out.detach(), aux.detach(), dict(zip(("x",) + names, grads))
+
+
+def ep_layer_gates(cfg, params_moe, dev, g, devices=None) -> str:
+    """[lm-train-moe-ep]'s layer gates on a float32 copy of one MoE layer
+    at EP_GATE_BATCH x train_4k's tokens, each mesh of EP_GATE_MESHES
+    over ``devices`` (every visible card by default): at EP_AMPLE_CF the schedule's output within
+    EP_REL_L2 of ``moe_apply``'s one group, aux within EP_AUX_TOL, no
+    assignment dropped, gradients within EP_GRAD_REL_L2 (the router's
+    non-zero); at the published capacity factor the output within
+    EP_REL_L2 of ``moe_apply`` over the rank blocks, a group a rank.
+    Returns the lines' text."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.distributed import make_mesh
+    from repro_torch.models import moe
+    from repro_torch.training import optimizer as opt_mod
+
+    p = opt_mod.tree_map(lambda t: t.detach().float().clone(), params_moe)
+    mc = cfg.moe
+    b, s = EP_GATE_BATCH, ROUTER_TRAIN_TOKENS
+    x = torch.randn((b, s, mc.d_model), generator=g, device=dev)
+    w = torch.randn((b, s, mc.d_model), generator=g, device=dev)
+    ample = dataclasses.replace(mc, capacity_factor=EP_AMPLE_CF)
+    one = ep_layer_grads(p, ample, x, w, n_groups=1)
+    lines = []
+    for shape in EP_GATE_MESHES:
+        mesh = make_mesh(shape, EP_AXES, devices)
+        where = f"mesh {shape} ({mesh.describe()})"
+        if not moe._expert_parallel_ok(ample, x, mesh):
+            raise AssertionError(f"[lm-train-moe-ep] {where}: the schedule "
+                                 f"does not apply to {tuple(x.shape)}")
+        tally = [0, 0]
+        with drops_counted(tally):
+            ep = ep_layer_grads(p, ample, x, w, mesh=mesh)
+        rel, aux_err = rel_l2(ep[0], one[0]), abs(float(ep[1] - one[1]))
+        grad_rel = {n: rel_l2(ep[2][n], one[2][n]) for n in one[2]}
+        if not (rel <= EP_REL_L2 and aux_err <= EP_AUX_TOL
+                and tally[0] == tally[1]):
+            raise AssertionError(
+                f"[lm-train-moe-ep] {where}, capacity factor "
+                f"{EP_AMPLE_CF}: output relative L2 {rel:.3g} (bound "
+                f"{EP_REL_L2}), aux error {aux_err:.3g} (bound "
+                f"{EP_AUX_TOL}), {tally[1] - tally[0]} assignments dropped")
+        if not (max(grad_rel.values()) <= EP_GRAD_REL_L2
+                and float(ep[2]["router"].norm()) > 0):
+            raise AssertionError(f"[lm-train-moe-ep] {where}: gradients "
+                                 f"against the one-group path {grad_rel} "
+                                 f"(bound {EP_GRAD_REL_L2}), router norm "
+                                 f"{float(ep[2]['router'].norm()):.4g}")
+        with torch.no_grad():
+            tally = [0, 0]
+            with drops_counted(tally):
+                got, _ = moe.moe_apply(p, mc, x, mesh=mesh)
+            ranks = moe._ranks(mesh)
+            bl, sl = b // shape[0], s // shape[1]
+
+            def blocks(t):
+                return torch.cat([t[i * bl:(i + 1) * bl, j * sl:(j + 1) * sl]
+                                  .reshape(bl * sl, -1) for i, j, _ in ranks])
+            want, _ = moe.moe_apply(p, mc, blocks(x)[None],
+                                    n_groups=len(ranks))
+            pub = rel_l2(blocks(got), want[0])
+        if not pub <= EP_REL_L2:
+            raise AssertionError(f"[lm-train-moe-ep] {where}, capacity "
+                                 f"factor {mc.capacity_factor}: relative L2 "
+                                 f"{pub:.3g} against moe_apply over the rank "
+                                 f"blocks (bound {EP_REL_L2})")
+        lines.append(
+            f"{where}: capacity factor {EP_AMPLE_CF}: output within "
+            f"relative L2 {rel:.3g} of moe_apply's one group, aux within "
+            f"{aux_err:.3g}, nothing dropped, gradients within "
+            f"{max(grad_rel.values()):.3g} ("
+            + ", ".join(f"{n} {v:.3g}" for n, v in grad_rel.items())
+            + f"; router norm {float(ep[2]['router'].norm()):.4g}); "
+            f"capacity factor {mc.capacity_factor}: within {pub:.3g} of "
+            f"moe_apply over the rank blocks ({len(ranks)} groups), "
+            f"{1 - tally[0] / tally[1]:.4f} of assignments dropped")
+        del ep
+    return "; ".join(lines)
+
+
+def ep_cross_bytes(cfg, mesh, b: int, s: int) -> int:
+    """Bytes one MoE layer's forward in ``cfg.dtype`` copies between cards
+    on ``mesh`` (weights and tokens on the mesh's first card): each rank
+    off that card receives its token block, the router and its experts'
+    slices and returns its outputs and two E-wide float32 sums, and each
+    slab of the two exchanges crosses where its two ranks sit on different
+    cards.  0 on one card."""
+    import torch
+
+    from repro_torch.launch.mesh import dp_axes
+    from repro_torch.models import moe
+
+    mc = cfg.moe
+    el = torch.empty((), dtype=cfg.dtype).element_size()
+    n_dp = moe._axis_size(mesh, dp_axes(mesh))
+    n_tp = mesh.shape["model"]
+    t_local = (b // n_dp) * (s // n_tp)
+    e_local = mc.n_experts // n_tp
+    cap = max(int(mc.capacity_factor * t_local * mc.top_k / mc.n_experts), 1)
+    ranks = moe._ranks(mesh)
+    dev = {(i, j): d for i, j, d in ranks}
+    off = sum(d != mesh.device for _, _, d in ranks)
+    per_rank = (2 * t_local * mc.d_model * el
+                + mc.d_model * mc.n_experts * el
+                + 3 * e_local * mc.d_model * mc.d_expert * el
+                + 2 * mc.n_experts * 4)
+    slab = e_local * cap * mc.d_model * el
+    pairs = sum(dev[i, j] != dev[i, jp] for i, j, _ in ranks
+                for jp in range(n_tp))
+    return off * per_rank + 2 * pairs * slab
+
+
+def lm_train_moe_ep(dev, card: str, seed: int, moe_cell: dict | None,
+                    devices=None) -> tuple[dict, float]:
+    """[lm-train-moe-ep]: :func:`ep_layer_gates` on [lm-train-moe]'s MoE
+    layer 1, then EP_TRAIN_STEPS steps of its cell (the same weights,
+    batches and schedule) with ``lm_loss(..., mesh)`` on a mesh
+    EP_TRAIN_MESH over ``devices`` (every visible card by default; the
+    gates' meshes too).
+    Fails unless the gates pass, every step's metrics are finite and its
+    lr the schedule's, and ``topk`` launched once a rank a MoE layer a
+    forward (and its recompute).  ``moe_cell``: [lm-train-moe]'s first
+    loss and step p50, printed beside this run's (None: not run).
+    Returns (the launch counts of the steps, the first step's loss)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import base
+    from repro_torch.distributed import make_mesh
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe, transformer
+
+    t_phase = time.perf_counter()
+    spec = base.get("deepseek-v2-lite-16b")
+    cfg = dataclasses.replace(spec.config, n_layers=TRAIN_MOE_LAYERS)
+    s = spec.cell(TRAIN_CELL).meta["seq"]
+    n_moe = TRAIN_MOE_LAYERS - cfg.first_k_dense
+    mesh = make_mesh(EP_TRAIN_MESH, EP_AXES, devices)
+    cards = list(dict.fromkeys(mesh.devices))
+    state, step_fn, data, sched, opt_cfg = train_setup(
+        spec, cfg, dev, seed, 911, TRAIN_MOE_STEPS, TRAIN_MOE_BATCH,
+        mesh=mesh)
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(seed + 913)
+    gates = ep_layer_gates(cfg, state.params["layers"][1]["moe"], dev, g,
+                           devices)
+    torch.cuda.empty_cache()
+    gate_s = time.perf_counter() - t0
+    log(f"[lm-train-moe-ep] layer gates, float32 MoE layer 1 of the cell's "
+        f"weights at {EP_GATE_BATCH}x{ROUTER_TRAIN_TOKENS} tokens "
+        f"({gate_s:.1f} s): {gates}; {card}")
+    for d in cards:
+        torch.cuda.reset_peak_memory_stats(d)
+    ops.reset_launch_counts()
+    state, step_ms, rows, upd_ms = train_loop(
+        state, step_fn, data, EP_TRAIN_STEPS, sched, "lm-train-moe-ep")
+    counts = ops.launch_counts()
+    peaks = [torch.cuda.max_memory_allocated(d) for d in cards]
+    tally = [0, 0]
+    with torch.no_grad(), drops_counted(tally):
+        transformer.forward(cfg, state.params, next(data)["tokens"], mesh)
+    ranks = len(moe._ranks(mesh))
+    want = ranks * n_moe * 2 * EP_TRAIN_STEPS
+    if counts["topk"] != want:
+        raise AssertionError(f"[lm-train-moe-ep] topk launched "
+                             f"{counts['topk']} times, not {want} ({ranks} "
+                             f"ranks x {n_moe} MoE layers x 2 x "
+                             f"{EP_TRAIN_STEPS} steps)")
+    del state, data
+    torch.cuda.empty_cache()
+    p50 = statistics.median(step_ms)
+    layer = ep_cross_bytes(cfg, mesh, TRAIN_MOE_BATCH, s)
+    first = rows[0]["loss"]
+    beside = ("[lm-train-moe] not run" if moe_cell is None else
+              f"[lm-train-moe]'s {moe_cell['first_loss']:.6f} from the same "
+              f"weights and batch with one group (not gated: capacity is "
+              f"per rank here, so the drop sets differ)")
+    beside_p50 = ("" if moe_cell is None else
+                  f" ([lm-train-moe]: {moe_cell['p50']:.3f} ms)")
+    log(f"[lm-train-moe-ep] {EP_TRAIN_STEPS} steps of [lm-train-moe]'s cell "
+        f"({TRAIN_MOE_BATCH}x{s} tokens, {cfg.dtype} compute, capacity "
+        f"factor {cfg.moe.capacity_factor}, {opt_cfg.schedule} lr "
+        f"{[r['lr'] for r in rows]}) with lm_loss on the mesh "
+        f"{EP_TRAIN_MESH} ({mesh.describe()}): "
+        f"{moe_curve(rows, 1 - tally[0] / tally[1])}; first loss {first:.6f} beside {beside}; step "
+        f"{step_stats(step_ms)}{beside_p50}; update p50 "
+        f"{statistics.median(upd_ms):.3f} ms; topk {counts['topk']} "
+        f"launches = {ranks} ranks x {n_moe} MoE layers x 2 (forward and "
+        f"recompute) x {EP_TRAIN_STEPS} steps; bytes copied between cards "
+        f"a step about {3 * n_moe * layer:,} (3 x {n_moe} MoE layers x "
+        f"{layer:,} a layer's forward: the forward, the recompute and "
+        f"backward's gradients of the same copies; from the placement and "
+        f"the shapes, not measured); peak memory "
+        + ", ".join(f"{d} {pk / 1e9:.2f} GB" for d, pk in zip(cards, peaks))
+        + f" (max_memory_allocated); {card}")
+    log(f"[lm-train-moe-ep] phase {time.perf_counter() - t_phase:.1f} s")
+    return counts, first
 
 
 def examples_train(card: str) -> dict:
@@ -5162,12 +5407,13 @@ def examples_train(card: str) -> dict:
     return ops.launch_counts()
 
 
-def train_paths(dev, card: str, seed: int) -> dict:
-    """[lm-train], [lm-train-moe] and [examples-train]: {path: launch
-    counts}."""
-    return {"lm-train": lm_train(dev, card, seed),
-            "lm-train-moe": lm_train_moe(dev, card, seed),
-            "examples-train": examples_train(card)}
+def train_paths(dev, card: str, seed: int) -> tuple[dict, dict]:
+    """[lm-train], [lm-train-moe] and [examples-train]: ({path: launch
+    counts}, [lm-train-moe]'s first loss and step p50)."""
+    out = {"lm-train": lm_train(dev, card, seed)}
+    out["lm-train-moe"], moe_cell = lm_train_moe(dev, card, seed)
+    out["examples-train"] = examples_train(card)
+    return out, moe_cell
 
 
 # --------------------------------------------------------------- phase 4c
@@ -5993,8 +6239,13 @@ def main(argv=None) -> int:
     with ThreadPoolExecutor(max_workers=1) as pool:
         # [gnn-gat]'s host graphs, made beside the training phases.
         graphs = gnn_host_graphs(pool, args.seed)
-        paths.update(train_paths(dev, card, args.seed))
+        counts, moe_cell = train_paths(dev, card, args.seed)
+        paths.update(counts)
         mark("train")
+        paths["lm-train-moe-ep"], _ = lm_train_moe_ep(dev, card, args.seed,
+                                                      moe_cell)
+        torch.cuda.empty_cache()
+        mark("train-moe-ep")
         paths.update(zoo_paths(dev, card, args.seed, graphs))
     mark("zoo")
     for rec in kernels:

@@ -16,7 +16,10 @@ float32 and casts every layer, the embedding rows and the head to
 
 Entry points: :func:`lm_loss` (causal LM training loss), :func:`forward`,
 :func:`prefill` (last-position logits) and :func:`decode_step` (one token
-against the cache of :func:`init_cache`).  Whenever autograd records
+against the cache of :func:`init_cache`).  The first three take an
+optional ``mesh`` (a ("data", "model") ``ShardMesh``, where the reference
+takes a ``ShardCtx``): its MoE layers then run the expert-parallel
+schedule of :mod:`repro_torch.models.moe`.  Whenever autograd records
 (grad enabled and any parameter or the input requiring grad), each layer
 of :func:`forward` runs under ``torch.utils.checkpoint``, as the
 reference's ``remat`` (on in every config) rematerialises it: backward
@@ -191,18 +194,21 @@ def _residual(cfg: TransformerConfig, x: torch.Tensor,
     return x + (branch * rs if rs != 1.0 else branch)
 
 
-def _ffn(cfg: TransformerConfig, p: Params, h: torch.Tensor,
-         no_drop: bool) -> tuple[torch.Tensor, torch.Tensor | None]:
+def _ffn(cfg: TransformerConfig, p: Params, h: torch.Tensor, no_drop: bool,
+         mesh=None) -> tuple[torch.Tensor, torch.Tensor | None]:
     if "moe" in p:
-        return moe_mod.moe_apply(p["moe"], cfg.moe, h, no_drop=no_drop)
+        return moe_mod.moe_apply(p["moe"], cfg.moe, h, no_drop=no_drop,
+                                 mesh=mesh)
     return layers.swiglu(p["ffn"], h), None
 
 
 def _train_layer(cfg: TransformerConfig, p_layer: Params, x: torch.Tensor,
-                 aux: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+                 aux: torch.Tensor, mesh=None
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """One block of the train path: (x, aux) -> (x, aux plus the layer's
     load-balance loss).  The cast to ``cfg.dtype`` happens here, so under
-    the checkpoint the cast weights are recomputed, not kept for backward."""
+    the checkpoint the cast weights are recomputed, not kept for backward.
+    An MoE layer on ``mesh`` runs as :func:`moe_mod.moe_apply` decides."""
     p = _cast(p_layer, cfg.dtype)
     h = layers.rms_norm(x, p["ln_attn"])
     if cfg.attention == "mla":
@@ -211,19 +217,22 @@ def _train_layer(cfg: TransformerConfig, p_layer: Params, x: torch.Tensor,
         a = attn_mod.gqa_train(p["attn"], cfg.gqa, h)
     x = _residual(cfg, x, a)
     h = layers.rms_norm(x, p["ln_ffn"])
-    out, a_loss = _ffn(cfg, p, h, no_drop=False)
+    out, a_loss = _ffn(cfg, p, h, no_drop=False, mesh=mesh)
     if a_loss is not None:
         aux = aux + a_loss
     return _residual(cfg, x, out), aux
 
 
-def forward(cfg: TransformerConfig, params: Params,
-            tokens: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def forward(cfg: TransformerConfig, params: Params, tokens: torch.Tensor,
+            mesh=None) -> tuple[torch.Tensor, torch.Tensor]:
     """tokens (B, S) -> (hidden (B, S, D), aux_loss): the sum of the MoE
     layers' load-balance losses (0 for a dense model).  MoE layers drop
-    assignments past capacity_factor.  When autograd records, each layer
-    runs under ``torch.utils.checkpoint`` (the same values; backward runs
-    each layer's forward again)."""
+    assignments past capacity_factor; on a ("data", "model") ``mesh``
+    (a :class:`~repro_torch.distributed.mesh.ShardMesh`, the reference's
+    ``ShardCtx``) they run the expert-parallel schedule where its shapes
+    allow, else one group per data shard.  When autograd records, each
+    layer runs under ``torch.utils.checkpoint`` (the same values; backward
+    runs each layer's forward again, its exchanges included)."""
     _check_attention(cfg)
     x = _embed(cfg, params, tokens)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -233,10 +242,10 @@ def forward(cfg: TransformerConfig, params: Params,
     for p_layer in params["layers"]:
         if records:
             x, aux = torch.utils.checkpoint.checkpoint(
-                _train_layer, cfg, p_layer, x, aux, use_reentrant=False,
-                preserve_rng_state=False)
+                _train_layer, cfg, p_layer, x, aux, mesh,
+                use_reentrant=False, preserve_rng_state=False)
         else:
-            x, aux = _train_layer(cfg, p_layer, x, aux)
+            x, aux = _train_layer(cfg, p_layer, x, aux, mesh)
     x = layers.rms_norm(x, params["ln_final"].to(x.dtype))
     return x, aux
 
@@ -252,12 +261,13 @@ def logits_from_hidden(cfg: TransformerConfig, params: Params,
 
 
 def lm_loss(cfg: TransformerConfig, params: Params,
-            batch: dict[str, torch.Tensor]
+            batch: dict[str, torch.Tensor], mesh=None
             ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """Causal LM loss.  batch: tokens (B, S), labels (B, S) (negative =
     ignore, the reference's -100).  Returns (ce + aux_loss_weight * aux,
-    {"ce", "aux"}), the cross entropy in float32 over the kept labels."""
-    x, aux = forward(cfg, params, batch["tokens"])
+    {"ce", "aux"}), the cross entropy in float32 over the kept labels.
+    ``mesh``: as :func:`forward`."""
+    x, aux = forward(cfg, params, batch["tokens"], mesh)
     logits = logits_from_hidden(cfg, params, x)
     labels = batch["labels"]
     mask = labels >= 0
@@ -314,8 +324,9 @@ def decode_step(cfg: TransformerConfig, params: Params, cache: Params,
     return logits_from_hidden(cfg, params, x)[:, 0], cache
 
 
-def prefill(cfg: TransformerConfig, params: Params,
-            tokens: torch.Tensor) -> torch.Tensor:
-    """Full forward over the prompt; last-position logits (B, V)."""
-    x, _ = forward(cfg, params, tokens)
+def prefill(cfg: TransformerConfig, params: Params, tokens: torch.Tensor,
+            mesh=None) -> torch.Tensor:
+    """Full forward over the prompt; last-position logits (B, V).
+    ``mesh``: as :func:`forward`."""
+    x, _ = forward(cfg, params, tokens, mesh)
     return logits_from_hidden(cfg, params, x[:, -1:, :])[:, 0]
